@@ -44,3 +44,4 @@ def bc_float(bc_dataset):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
