@@ -6,18 +6,23 @@
 Phases, each fatal on failure (a mismatch raises, nothing falls back):
 
 1. device — the card's name, and ``nvidia-smi``'s name and power limit;
-2. build — the three CUDA kernels from ``src/repro_torch/csrc`` into one
+2. build — the CUDA kernels from ``src/repro_torch/csrc`` into one
    shared library (nvcc, sm_90a, one compile per source, started
    together, then one link);
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
-   and breast_cancer, pop 256), exact equality (tolerance 0: integer
-   outputs);
-4. end to end — ``GATrainer.run`` at pendigits width (16, 5, 10), pop 256,
-   with generation backends auto (megakernel), ref (EvalCache + fitness
-   kernel) and phases (variation kernel + fitness kernel); the three final
-   states must be bit-identical, every kernel must launch, and a small
-   breast_cancer run on the card must equal the plain run on the CPU;
+   and breast_cancer, pop 256, K = 8 device instances), exact equality
+   (tolerance 0: integer outputs); the device-instance kernels with an
+   all-zero delta table equal the nominal kernels;
+4. end to end, two paths, each with the launch counts set to 0 just
+   before it and read just after — ``GATrainer.run`` at pendigits width
+   (16, 5, 10), pop 256, with generation backends auto (megakernel), ref
+   (EvalCache + fitness kernel) and phases (variation kernel + fitness
+   kernel): the nominal path (``variation_mode="off"``) and the
+   device-variation Monte-Carlo path (``variation_mode="mean"``, K = 8).
+   On each path the three final states must be bit-identical and every
+   kernel of the path must launch; small breast_cancer runs (off, worst,
+   mean) on the card must equal the plain runs on the CPU;
 5. numbers — per kernel: the device time of its launch alone, operands
    prepared once (50 launches captured in a CUDA graph, replayed between
    CUDA events), the same for the whole wrapper, the time of a wrapper
@@ -43,7 +48,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 GENERATIONS = 20
+K_DEV = 8                       # GAConfig.n_device_samples default
 FIELDS = ("pop", "obj", "viol", "rank", "crowd", "counts", "key", "gen")
+CACHE = ("cache.rows", "cache.vals", "cache.stamp")
+# the kernels each end-to-end path must launch
+PATH_KERNELS = {"off": ("pop_mlp_correct", "pop_variation_kernel", "pop_generation_kernel"),
+                "mean": ("pop_mlp_correct_mc", "pop_variation_kernel",
+                         "pop_generation_kernel_mc")}
 
 
 def nvidia_smi(query: str) -> str:
@@ -174,6 +185,21 @@ def fitness_ops(topo, P: int, S: int) -> dict:
     return ops_add((P * S, forward_ops(topo)), (P, chromosome_ops(topo)))
 
 
+def fitness_mc_ops(topo, P: int, S: int, K: int, n_moved: int) -> dict:
+    """K instances of the forward per (chromosome, sample), with layer 1's
+    ``x & mask`` counted once (it does not depend on the instance: the
+    deltas move exponents only); per (chromosome, instance) the per-
+    chromosome work, and per gene the deltas move (``n_moved`` nonzero
+    entries of the (K, G) table, as this run's deltas have) an add and a
+    clip into [0, high - 1] (max, min)."""
+    and1 = topo.sizes[0] * topo.sizes[1]
+    per_sample = forward_ops(topo)
+    shared = {"alu": and1}
+    rest = dict(per_sample, alu=per_sample["alu"] - and1)
+    return ops_add((P * S, shared), (P * S * K, rest), (P * K, chromosome_ops(topo)),
+                   (P * n_moved, {"alu": 3}))
+
+
 def bound(ops: dict, nbytes: int, n_sm: int, clock_hz: float):
     """(least ms, "operations" or "bytes", the term that bounds): the larger
     of the bytes over HBM's rate and the operations over the busiest of the
@@ -214,9 +240,9 @@ def main() -> int:
     from repro_torch.data import load_dataset
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.backend import BackendPolicy
-    from repro_torch.kernels.pop_mlp.kernel import (pop_mlp_correct,
-                                                    pop_mlp_correct_call,
-                                                    pop_mlp_correct_plain)
+    from repro_torch.kernels.pop_mlp.kernel import (
+        pop_mlp_correct, pop_mlp_correct_call, pop_mlp_correct_mc,
+        pop_mlp_correct_mc_plain, pop_mlp_correct_plain)
     from repro_torch.kernels.pop_variation.kernel import (pop_variation_call,
                                                           pop_variation_kernel,
                                                           pop_variation_plain)
@@ -250,8 +276,7 @@ def main() -> int:
             print(f"[build] {line.strip()}")
 
     # -- 3. kernels vs plain versions -------------------------------------
-    max_err = {"pop_mlp_correct": 0, "pop_variation_kernel": 0,
-               "pop_generation_kernel": 0}
+    max_err = dict.fromkeys(_cuda.LAUNCHES, 0)
     rng = np.random.default_rng(0)
     shapes = {}
     for ds_name in ("pendigits", "breast_cancer"):
@@ -276,6 +301,31 @@ def main() -> int:
         do_rows = torch.as_tensor(rng.random(P) < 0.7, device=dev)
         key = prng.PRNGKey(int(rng.integers(2**31)), dev)
         keys = _slot_keys(key, (0, 1, 2))
+        # the main path's device-variation deltas (engine.device_deltas, K = 8)
+        deltas = engine.device_deltas(engine.Problem.from_data(
+            topo, ds.x_train, ds.y_train, engine.GAConfig(variation_mode="mean",
+                                                          n_device_samples=K_DEV),
+            device=dev))
+        zero = torch.zeros_like(deltas)
+        om = torch.ones(topo.sizes[-1], dtype=torch.int32, device=dev)
+        om[-1] = 0                                  # one masked output column
+        for rows, samp, mask in ((2 * P, None, None), (77, S // 2 + 3, None),
+                                 (0, None, None), (2 * P, None, om), (150, S - 5, om)):
+            n_rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+            kw = dict(spec=spec, n_valid_rows=n_rows, n_valid_samples=samp, out_mask=mask)
+            case = f"{ds_name} rows={rows} samples={samp} mask={mask is not None}"
+            got = pop_mlp_correct_mc(pop, x, y, deltas, t.high, **kw)
+            want = pop_mlp_correct_mc_plain(pop, x, y, dev=deltas, gene_high=t.high, **kw)
+            max_err["pop_mlp_correct_mc"] = max(max_err["pop_mlp_correct_mc"], require_equal(
+                f"pop_mlp_correct_mc {case}", got, want))
+            if got.shape != (2 * P, K_DEV) or (got[rows:] != 0).any():
+                raise AssertionError(f"pop_mlp_correct_mc {case}: shape or skipped rows")
+            nominal = pop_mlp_correct(pop, x, y, **kw)
+            require_equal(f"pop_mlp_correct_mc {case} all-zero deltas vs pop_mlp_correct",
+                          pop_mlp_correct_mc(pop, x, y, zero, t.high, **kw),
+                          nominal[:, None].expand(-1, K_DEV))
+            require_equal(f"pop_mlp_correct_mc {case} column 0 vs pop_mlp_correct",
+                          got[:, 0], nominal)
         for pm in (0.02, 0.5):
             pm_t = torch.tensor(pm, dtype=torch.float32, device=dev)
             args = (a_rows, b_rows, do_rows, t.low, t.high, t.is_mask, t.mask_bits,
@@ -288,65 +338,95 @@ def main() -> int:
             max_err["pop_generation_kernel"] = max(
                 require_equal(f"pop_generation_kernel children {ds_name} pm={pm}", ch_k, ch_p),
                 require_equal(f"pop_generation_kernel counts {ds_name} pm={pm}", cnt_k, cnt_p))
-        shapes[ds_name] = dict(spec=spec, x=x, y=y, pop=pop[:P].contiguous(),
+            for samp, mask in ((None, None), (S // 2 + 3, om)):
+                kw = dict(spec=spec, n_valid_samples=samp, out_mask=mask)
+                case = f"{ds_name} pm={pm} samples={samp} mask={mask is not None}"
+                ch_m, cnt_m = pop_generation_kernel(*args, x, y, dev=deltas, **kw)
+                ch_q, cnt_q = pop_generation_plain(*args, x, y, dev=deltas, **kw)
+                max_err["pop_generation_kernel_mc"] = max(
+                    max_err["pop_generation_kernel_mc"],
+                    require_equal(f"pop_generation_kernel_mc children {case}", ch_m, ch_q),
+                    require_equal(f"pop_generation_kernel_mc counts {case}", cnt_m, cnt_q))
+                ch_n, cnt_n = pop_generation_kernel(*args, x, y, **kw)
+                ch_z, cnt_z = pop_generation_kernel(*args, x, y, dev=zero, **kw)
+                require_equal(f"pop_generation_kernel_mc {case} children vs nominal", ch_m, ch_n)
+                require_equal(f"pop_generation_kernel_mc {case} all-zero deltas vs nominal",
+                              cnt_z, cnt_n[:, None].expand(-1, K_DEV))
+        shapes[ds_name] = dict(spec=spec, x=x, y=y, pop=pop[:P].contiguous(), deltas=deltas,
+                               high=t.high,
                                args=(a_rows, b_rows, do_rows, t.low, t.high, t.is_mask,
                                      t.mask_bits, t.ids, keys,
                                      torch.tensor(0.02, dtype=torch.float32, device=dev)))
-        print(f"[kernels] {ds_name}: P={P} G={G} S={S}: pop_mlp_correct (6 bound cases), "
-              f"pop_variation_kernel, pop_generation_kernel equal their plain versions")
+        print(f"[kernels] {ds_name}: P={P} G={G} S={S} K={K_DEV}: pop_mlp_correct (6 bound "
+              f"cases), pop_mlp_correct_mc (5 bound cases, all-zero deltas == "
+              f"pop_mlp_correct), pop_variation_kernel, pop_generation_kernel, "
+              f"pop_generation_kernel_mc (children == nominal, all-zero deltas == nominal) "
+              f"equal their plain versions")
     torch.cuda.synchronize()
 
     # -- 4. end to end -------------------------------------------------------
     ds = load_dataset("pendigits")
     topo = MLPTopology(ds.topology)
-    finals, per_run, trainers = {}, {}, {}
-    _cuda.reset_launches()
-    for backend in ("auto", "ref", "phases"):
-        before = dict(_cuda.LAUNCHES)
-        cfg = engine.GAConfig(pop_size=256, generations=GENERATIONS, seed=0,
-                              backends=BackendPolicy(generation=backend))
-        t0 = time.perf_counter()
-        tr = GATrainer(topo, ds.x_train, ds.y_train, cfg, device=dev)
-        state, _ = tr.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        leaves = state_to_numpy(state)
-        if not (np.isfinite(leaves["obj"]).all() and leaves["obj"].shape == (256, 2)):
-            raise AssertionError(f"{backend}: objectives not finite or misshapen")
-        low, high = tr.spec.low, tr.spec.high
-        if not ((leaves["pop"] >= low).all() and (leaves["pop"] < high).all()):
-            raise AssertionError(f"{backend}: genomes out of bounds")
-        finals[backend] = leaves
-        trainers[backend] = (tr, state)
-        per_run[backend] = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
-        print(f"[e2e] pendigits pop 256 gens {GENERATIONS} generation={backend}: "
-              f"{wall:.2f} s wall ({GENERATIONS / wall:.2f} gen/s incl. init), "
-              f"unique_evals {tr.unique_evals}, cache_hits {tr.cache_hits}, "
-              f"launches {per_run[backend]}")
-    launches = dict(_cuda.LAUNCHES)
-    for backend in ("ref", "phases"):
-        for f in FIELDS:
-            a, b = finals["auto"][f], finals[backend][f]
-            if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
-                                  b.view(np.int32) if b.dtype == np.float32 else b):
-                raise AssertionError(f"e2e: GAState.{f} differs between auto and {backend}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"e2e: kernels never launched on the main path: {missing}")
-    print(f"[e2e] auto/ref/phases final states bit-identical; launches {launches}")
+    per_run, trainers, launches = {}, {}, {}
+    for mode in PATH_KERNELS:
+        finals = {}
+        _cuda.reset_launches()
+        for backend in ("auto", "ref", "phases"):
+            before = dict(_cuda.LAUNCHES)
+            cfg = engine.GAConfig(pop_size=256, generations=GENERATIONS, seed=0,
+                                  variation_mode=mode,
+                                  backends=BackendPolicy(generation=backend))
+            t0 = time.perf_counter()
+            tr = GATrainer(topo, ds.x_train, ds.y_train, cfg, device=dev)
+            state, _ = tr.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            leaves = state_to_numpy(state)
+            n_obj = 2 if mode == "off" else 3
+            if not (np.isfinite(leaves["obj"]).all() and leaves["obj"].shape == (256, n_obj)):
+                raise AssertionError(f"{mode}/{backend}: objectives not finite or misshapen")
+            if leaves["counts"].shape != ((256,) if mode == "off" else (256, K_DEV)):
+                raise AssertionError(f"{mode}/{backend}: counts misshapen")
+            low, high = tr.spec.low, tr.spec.high
+            if not ((leaves["pop"] >= low).all() and (leaves["pop"] < high).all()):
+                raise AssertionError(f"{mode}/{backend}: genomes out of bounds")
+            finals[backend] = leaves
+            trainers[mode, backend] = (tr, state)
+            per_run[mode, backend] = {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+            print(f"[e2e] pendigits pop 256 gens {GENERATIONS} variation_mode={mode} "
+                  f"generation={backend}: {wall:.2f} s wall ({GENERATIONS / wall:.2f} gen/s "
+                  f"incl. init), unique_evals {tr.unique_evals}, cache_hits {tr.cache_hits}, "
+                  f"launches {per_run[mode, backend]}")
+        launches[mode] = dict(_cuda.LAUNCHES)
+        # ref updates the EvalCache; auto and phases carry init's through
+        for backend, fields in (("ref", FIELDS), ("phases", FIELDS + CACHE)):
+            for f in fields:
+                a, b = finals["auto"][f], finals[backend][f]
+                if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
+                                      b.view(np.int32) if b.dtype == np.float32 else b):
+                    raise AssertionError(f"e2e {mode}: GAState.{f} differs between auto "
+                                         f"and {backend}")
+        missing = [k for k in PATH_KERNELS[mode] if launches[mode][k] == 0]
+        if missing:
+            raise AssertionError(f"e2e {mode}: kernels never launched on the path: {missing}")
+        print(f"[e2e] variation_mode={mode}: auto/ref/phases final states bit-identical "
+              f"(EvalCache too between auto and phases); launches {launches[mode]}")
 
     bc = load_dataset("breast_cancer")
-    small = engine.GAConfig(pop_size=32, generations=3, seed=5)
-    runs = {}
-    for d in (dev, "cpu"):
-        tr = GATrainer(MLPTopology(bc.topology), bc.x_train, bc.y_train, small, device=d)
-        runs[str(d)] = state_to_numpy(tr.run()[0])
-    for f in FIELDS:
-        a, b = runs[str(dev)][f], runs["cpu"][f]
-        if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
-                              b.view(np.int32) if b.dtype == np.float32 else b):
-            raise AssertionError(f"small run: GAState.{f} differs between card and CPU")
-    print("[e2e] breast_cancer pop 32 gens 3: card (kernels) == CPU (plain paths), bit for bit")
+    for mode in ("off", "worst", "mean"):
+        small = engine.GAConfig(pop_size=32, generations=3, seed=5, variation_mode=mode)
+        runs = {}
+        for d in (dev, "cpu"):
+            tr = GATrainer(MLPTopology(bc.topology), bc.x_train, bc.y_train, small, device=d)
+            runs[str(d)] = state_to_numpy(tr.run()[0])
+        for f in FIELDS:      # auto: kernel path on the card, ref on the CPU
+            a, b = runs[str(dev)][f], runs["cpu"][f]
+            if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
+                                  b.view(np.int32) if b.dtype == np.float32 else b):
+                raise AssertionError(f"small run {mode}: GAState.{f} differs between card "
+                                     f"and CPU")
+        print(f"[e2e] breast_cancer pop 32 gens 3 variation_mode={mode}: card (kernels) == "
+              f"CPU (plain paths), bit for bit")
 
     # -- 5. numbers ------------------------------------------------------------
     sh = shapes["pendigits"]
@@ -356,6 +436,10 @@ def main() -> int:
     n_out = spec.topo.sizes[-1]
     f_ops = fitness_ops(spec.topo, P, S)
     v_ops = variation_ops(P, G)
+    deltas, high = sh["deltas"], sh["high"]
+    K = deltas.shape[0]
+    mc_ops = fitness_mc_ops(spec.topo, P, S, K, int((deltas != 0).sum()))
+    dev_bytes = 4 * (K * G + G)                            # delta table, gene bounds
     data_bytes = 4 * (S * n_in + S + n_out + 1)           # samples, labels, out_mask, bound
     var_bytes = 4 * (2 * P * G + P + 5 * G + 6 + 1)       # parents, gates, table, keys, pm
     # device-side bounds: a host int would be copied to the card in each call
@@ -366,6 +450,28 @@ def main() -> int:
     # preparation in every call, is timed beside it. Repeated launches of a
     # fitness kernel add into the same counts: the same work, a wrong sum.
     specs = {
+        "pop_mlp_correct_mc": dict(
+            source="src/repro_torch/csrc/pop_mlp.cu",
+            replaces="src/repro/kernels/pop_mlp/kernel.py:184",
+            launch=pop_mlp_correct_call(pop, x, y, spec=spec, n_valid_rows=all_rows,
+                                        n_valid_samples=all_samples, dev=deltas,
+                                        gene_high=high)[0],
+            wrapper=lambda: pop_mlp_correct_mc(pop, x, y, deltas, high, spec=spec,
+                                               n_valid_rows=all_rows,
+                                               n_valid_samples=all_samples),
+            plain=lambda: pop_mlp_correct_mc_plain(pop, x, y, spec=spec, dev=deltas,
+                                                   gene_high=high),
+            ops=mc_ops, nbytes=4 * (P * G + 1 + P * K) + data_bytes + dev_bytes),
+        "pop_generation_kernel_mc": dict(
+            source="src/repro_torch/csrc/pop_generation.cu",
+            replaces="src/repro/kernels/pop_generation/kernel.py:114 (n_dev branch, :89-107)",
+            launch=pop_generation_call(*args, x, y, spec=spec, n_valid_samples=all_samples,
+                                       dev=deltas)[0],
+            wrapper=lambda: pop_generation_kernel(*args, x, y, spec=spec,
+                                                  n_valid_samples=all_samples, dev=deltas),
+            plain=lambda: pop_generation_plain(*args, x, y, spec=spec, dev=deltas),
+            ops=ops_add((1, v_ops), (1, mc_ops)),
+            nbytes=var_bytes + data_bytes + dev_bytes + 4 * (P * G + P * K)),
         "pop_mlp_correct": dict(
             source="src/repro_torch/csrc/pop_mlp.cu",
             replaces="src/repro/kernels/pop_mlp/kernel.py:94",
@@ -394,39 +500,48 @@ def main() -> int:
             nbytes=var_bytes + data_bytes + 4 * (P * G + P)),
     }
     before = dict(_cuda.LAUNCHES)
+    # launches per generation on the backend that runs each kernel: auto
+    # launches a fitness kernel once (init), ref adds one a generation
+    home = {"pop_mlp_correct": ("off", "ref"), "pop_variation_kernel": ("off", "phases"),
+            "pop_generation_kernel": ("off", "auto"), "pop_mlp_correct_mc": ("mean", "ref"),
+            "pop_generation_kernel_mc": ("mean", "auto")}
     rows = []
-    for name, s in specs.items():
+    for name in home:
+        s = specs[name]
+        mode, backend = home[name]
         ms = device_ms(s["launch"], reps=50)
         wrapper_ms = device_ms(s["wrapper"], reps=50)
         call_ms = time_ms(s["wrapper"], reps=50)
         plain_ms = time_ms(s["plain"], reps=3, warmup=1)
         bound_ms, bound_by, pipe = bound(s["ops"], s["nbytes"], n_sm, clock_hz)
-        # auto launches the fitness kernel once (init); ref adds one a generation
-        per_gen = {"pop_mlp_correct": (per_run["ref"][name] - per_run["auto"][name]),
-                   "pop_variation_kernel": per_run["phases"][name],
-                   "pop_generation_kernel": per_run["auto"][name]}[name] / GENERATIONS
-        print(f"[numbers] {name} pendigits P={P} G={G} S={S}: kernel {ms:.4f} ms on the "
+        init = per_run[mode, "auto"][name] if backend == "ref" else 0
+        per_gen = (per_run[mode, backend][name] - init) / GENERATIONS
+        print(f"[numbers] {name} pendigits P={P} G={G} S={S}"
+              f"{f' K={K}' if mode != 'off' else ''}: kernel {ms:.4f} ms on the "
               f"device (wrapper {wrapper_ms:.4f} ms on the device, {call_ms:.4f} ms a call "
               f"from the host; plain {plain_ms:.3f} ms); bound {bound_ms:.4f} ms by "
               f"{bound_by} (ops per pipe {s['ops']}, bounding term {pipe}; {s['nbytes']} B), "
-              f"{bound_ms / ms:.1%} of bound; {per_gen:.2f} launches/generation on its "
-              f"backend; {smi}")
+              f"{bound_ms / ms:.1%} of bound; {per_gen:.2f} launches/generation on "
+              f"variation_mode={mode} generation={backend}; {smi}")
         rows.append({"name": name, "route": "cuda", "source": s["source"],
-                     "replaces": s["replaces"], "launches": launches[name],
+                     "replaces": s["replaces"], "launches": launches[mode][name],
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the
     # ranking tail alone. CUDA events around host-bound work measure the
     # host's time: the card waits between the events for what it is sent.
-    fin = trainers["auto"][1]
-    pool_obj, pool_viol = torch.cat([fin.obj, fin.obj]), torch.cat([fin.viol, fin.viol])
-    rank_ms = time_ms(lambda: rank_select_rerank(pool_obj, pool_viol, P), reps=3, warmup=1)
-    for backend, (tr, state) in trainers.items():
-        gen_ms = time_ms(lambda tr=tr, state=state: engine.generation(tr.problem, state),
-                         reps=5, warmup=1)
-        print(f"[numbers] generation={backend} pendigits pop {P}: {gen_ms:.2f} ms per "
-              f"generation; rank_select_rerank alone (sweep, Python loop, pool {2 * P}) "
-              f"{rank_ms:.2f} ms; {smi}")
+    for mode in PATH_KERNELS:
+        fin = trainers[mode, "auto"][1]
+        pool_obj, pool_viol = torch.cat([fin.obj, fin.obj]), torch.cat([fin.viol, fin.viol])
+        rank_ms = time_ms(lambda: rank_select_rerank(pool_obj, pool_viol, P), reps=3,
+                          warmup=1)
+        for backend in ("auto", "ref", "phases"):
+            tr, state = trainers[mode, backend]
+            gen_ms = time_ms(lambda tr=tr, state=state: engine.generation(tr.problem, state),
+                             reps=5, warmup=1)
+            print(f"[numbers] variation_mode={mode} generation={backend} pendigits pop {P}: "
+                  f"{gen_ms:.2f} ms per generation; rank_select_rerank alone (sweep, Python "
+                  f"loop, pool {2 * P}, {pool_obj.shape[1]} objectives) {rank_ms:.2f} ms; {smi}")
     # restore: the timing launches above are not main-path launches
     for k in before:
         _cuda.LAUNCHES[k] = before[k]

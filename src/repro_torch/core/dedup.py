@@ -57,7 +57,8 @@ def hash_rows(rows: torch.Tensor, ids=None):
 class EvalCache:
     """Fixed-size open-addressing chromosome → correct-count table.
 
-    ``rows`` (C, G) int32 keyed chromosomes, ``vals`` (C,) int32 counts,
+    ``rows`` (C, G) int32 keyed chromosomes, ``vals`` (C,) int32 counts
+    (or (C, K): one per device instance, ``cache_init(val_shape=(K,))``),
     ``stamp`` (C,) int32 the generation that last proved the entry useful
     (−1: empty). A row's candidate slots are ``(h1 + i·(h2|1)) mod C`` for
     ``i < probes`` (C a power of two); lookups confirm by exact row compare.
@@ -145,14 +146,20 @@ def _segment_max(data: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
     return out.scatter_reduce(0, seg, data, "amax", include_self=False)
 
 
+def _broadcast(cond: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A (N,) row mask shaped to select rows of an (N, ...) value tensor."""
+    return cond.reshape(cond.shape + (1,) * (leaf.dim() - 1))
+
+
 def dedup_eval(eval_fn, rows: torch.Tensor, known=None, gene_mask=None,
                cache: EvalCache | None = None, gen=None, ids=None):
     """Evaluate ``rows`` with duplicate suppression → per-row values.
 
-    eval_fn(batch, n_valid) → (len(batch),) tensor; only the first
+    eval_fn(batch, n_valid) → (len(batch), ...) tensor (one value per row,
+        e.g. an (N, K) count per device instance); only the first
         ``n_valid`` rows (a () int32 device tensor) need values.
-    known: optional (K,) values already computed for ``rows[:K]``; any row
-        identical to one of them reuses its value.
+    known: optional (M, ...) values already computed for ``rows[:M]``; any
+        row identical to one of them reuses its value.
     gene_mask: optional (G,) validity mask; hashing and comparison see
         only valid genes, ``eval_fn`` the actual rows.
     cache: optional :class:`EvalCache` (cross-generation path); ``gen`` is
@@ -172,8 +179,7 @@ def dedup_eval(eval_fn, rows: torch.Tensor, known=None, gene_mask=None,
     uid = torch.cumsum(first.long(), 0) - 1                 # group id per sorted row
 
     if known is not None:
-        K = known.shape[0]
-        is_known = order < K
+        is_known = order < known.shape[0]
         grp_known = _segment_max(is_known.to(torch.int32), uid, N)
         grp_kidx = _segment_max(torch.where(is_known, order, -1), uid, N)
         needs = first & (grp_known[uid] == 0)
@@ -195,10 +201,11 @@ def dedup_eval(eval_fn, rows: torch.Tensor, known=None, gene_mask=None,
     grp_slot = _segment_max(torch.where(needs, slot, -1), uid, N)
     val = evaluated[torch.clamp_min(grp_slot[uid], 0)]
     if cache is not None:
-        val = torch.where(hit, cval, val)
+        val = torch.where(_broadcast(hit, val), cval, val)
     if known is not None:
         reuse = grp_known[uid] == 1
-        val = torch.where(reuse, known[torch.clamp_min(grp_kidx[uid], 0)], val)
+        val = torch.where(_broadcast(reuse, val),
+                          known[torch.clamp_min(grp_kidx[uid], 0)], val)
     out = torch.empty_like(val)
     out[order] = val                       # order is a permutation
     if cache is None:

@@ -1,6 +1,7 @@
 """The GA engine: config, state and problem dataclasses, fitness and
 objectives, init, and the NSGA-II generation step, PyTorch port of
-``repro.core.engine`` for ``variation_mode="off"``.
+``repro.core.engine``, device-variation Monte-Carlo fitness
+(``variation_mode="mean"``/``"worst"``) included.
 
 State is a plain dataclass of tensors on one device; :func:`run_scanned`
 is a Python loop over :func:`generation` (the reference's ``lax.scan``).
@@ -19,7 +20,8 @@ import torch
 from . import prng
 from .area import population_area
 from .dedup import EvalCache, cache_init, dedup_eval
-from .genome import GeneTable, GenomeSpec, MLPTopology, random_population
+from .genome import (SLOT_DEVICE, GeneTable, GenomeSpec, MLPTopology,
+                     gene_uniform, random_population)
 from .mlp import population_correct_counts
 from .pareto import pareto_front
 from .quantize import quantize_inputs
@@ -90,8 +92,17 @@ class GAConfig:
             raise ValueError(
                 f"unknown GAConfig.variation_mode {self.variation_mode!r}: "
                 "expected 'off', 'mean' or 'worst'")
-        if self.variation_mode != "off":
-            raise _not_ported("device-variation fitness (variation_mode)", "A10")
+        if int(self.n_device_samples) < 1:
+            raise ValueError("GAConfig.n_device_samples must be >= 1, got "
+                             f"{self.n_device_samples}")
+        if not 0.0 <= float(self.variation_scale) <= 1.0:
+            raise ValueError("GAConfig.variation_scale must lie in [0, 1], "
+                             f"got {self.variation_scale}")
+        if self.variation_mode != "off" and pol.fitness == "jnp":
+            raise ValueError(
+                "variation_mode != 'off' needs a count-based fitness "
+                "backend (auto/kernel/ref): the 'jnp' oracle has no "
+                "device-instance axis")
         if self.generations_budget is not None:
             raise _not_ported("per-lane generation budgets", "A12")
         if self.batch_axis is not None:
@@ -107,11 +118,13 @@ class GAConfig:
 @dataclasses.dataclass
 class GAState:
     pop: torch.Tensor        # (P, n_genes) int32
-    obj: torch.Tensor        # (P, 2) float32 [error, area]
+    obj: torch.Tensor        # (P, 2) float32 [error, area]; (P, 3) with the
+    #                          robust error under device variation
     viol: torch.Tensor       # (P,) float32
     rank: torch.Tensor       # (P,) int32
     crowd: torch.Tensor      # (P,) float32
-    counts: torch.Tensor     # (P,) int32 correct counts (zeros, dedup off)
+    counts: torch.Tensor     # (P,) int32 correct counts, (P, K) per device
+    #                          instance under device variation (zeros, dedup off)
     key: torch.Tensor        # (2,) int64 uint32 key words
     gen: torch.Tensor        # () int32
     cache: EvalCache | None = None
@@ -240,9 +253,37 @@ def use_dedup(cfg: GAConfig) -> bool:
 
 # -- fitness ----------------------------------------------------------------
 
+def variation_on(cfg: GAConfig) -> bool:
+    """Whether device-variation Monte-Carlo fitness is active."""
+    return cfg.variation_mode != "off"
+
+
+def device_deltas(problem: Problem):
+    """(K, G) int32 exponent perturbations of the K sampled device
+    instances (K = ``cfg.n_device_samples``); row 0 is the nominal device
+    (all zero).
+
+    Gene-addressed draws under ``SLOT_DEVICE`` keyed by the static
+    ``cfg.device_seed`` (not the run key), so every run path and seed sees
+    the same K devices. A uniform u maps to −1 when u < scale/2 and +1
+    when u ≥ 1 − scale/2, in float32 against the () float32
+    ``variation_scale``. Only valid exponent genes perturb."""
+    cfg = problem.cfg
+    t = problem.genes
+    key = prng.PRNGKey(cfg.device_seed, problem.device)
+    u = gene_uniform(key, t.ids, cfg.n_device_samples, slot=SLOT_DEVICE)
+    half = 0.5 * problem.variation_scale                  # exact in float32
+    delta = (u >= 1.0 - half).to(torch.int32) - (u < half).to(torch.int32)
+    live = torch.as_tensor(problem.spec.is_exp, device=problem.device) & t.valid
+    delta = torch.where(live[None, :], delta, 0)
+    delta[0] = 0
+    return delta
+
+
 def population_counts(problem: Problem, pop, n_valid=None):
-    """(N, G) → (N,) int32 correct counts via the fitness dispatcher; rows
-    at or past ``n_valid`` are not evaluated (callers overwrite them)."""
+    """(N, G) → (N,) int32 correct counts via the fitness dispatcher, or
+    (N, K) per device instance under device-variation fitness; rows at or
+    past ``n_valid`` are not evaluated (callers overwrite them)."""
     from ..kernels.pop_mlp import population_correct  # lazy: kernels import core
 
     cfg = problem.cfg
@@ -250,7 +291,9 @@ def population_counts(problem: Problem, pop, n_valid=None):
         pop, problem.x_int, problem.labels, spec=problem.spec,
         backend=cfg.backends.fitness, pop_tile=cfg.pop_tile,
         sample_tile=cfg.sample_tile, n_valid_rows=n_valid,
-        n_valid_samples=problem.n_valid_samples, out_mask=problem.out_mask)
+        n_valid_samples=problem.n_valid_samples, out_mask=problem.out_mask,
+        dev=device_deltas(problem) if variation_on(cfg) else None,
+        gene_high=problem.genes.high)
 
 
 def counts_accuracy(problem: Problem, counts):
@@ -273,17 +316,70 @@ def objectives(problem: Problem, pop, acc):
     ``acc`` is the exact float64 product of :func:`counts_accuracy` or a
     float32 accuracy; ``1 - acc`` and ``baseline - acc`` are exact in
     float64, so one rounding to float32 gives the fused result for the
-    former and the plain float32 difference for the latter."""
+    former and the plain float32 difference for the latter.
+
+    Under device-variation fitness ``acc`` is (N, K) (column 0 nominal)
+    and the objectives are (N, 3) [nominal error, area, robust error]; the
+    robust accuracy (:func:`robust_accuracy`) bounds the violation."""
     acc = acc.to(torch.float64)
-    err = (1.0 - acc).to(torch.float32)
     if problem.cfg.acc_only:
-        area = torch.zeros_like(err)
+        area = torch.zeros(acc.shape[0], dtype=torch.float32, device=acc.device)
     else:
         area = population_area(problem.spec, pop).to(torch.float32)
-    obj = torch.stack([err, area], dim=-1)
-    gap = (problem.baseline_acc.to(torch.float64) - acc).to(torch.float32)
+    base = problem.baseline_acc.to(torch.float64)
+    if acc.dim() == 2:
+        rob = robust_accuracy(acc, problem.cfg.variation_mode)
+        obj = torch.stack([(1.0 - acc[:, 0]).to(torch.float32), area,
+                           fused_f32(1.0, -rob)], dim=-1)
+        gap = fused_f32(base, -rob)
+    else:
+        obj = torch.stack([(1.0 - acc).to(torch.float32), area], dim=-1)
+        gap = (base - acc).to(torch.float32)
     viol = torch.clamp_min(gap - problem.max_acc_loss, 0.0)
     return obj, viol
+
+
+def fused_f32(a, b) -> torch.Tensor:
+    """float32 rounding of the exact sum ``a + b`` of two float64 values,
+    rounded once, as a float32 fused multiply-add rounds (``b`` the exact
+    product). The float64 sum is made round-to-odd (Knuth's two-sum gives
+    its exact error; an inexact even result steps one ulp towards the
+    exact value), and a round-to-odd value 29 bits wider than float32
+    rounds to float32 as the exact sum does."""
+    a = torch.as_tensor(a, dtype=torch.float64, device=b.device)
+    d = a + b
+    bb = d - a
+    err = (a - (d - bb)) + (b - bb)
+    bits = d.view(torch.int64)
+    step = torch.where((err > 0) == (d > 0), 1, -1)
+    odd = torch.where((err != 0) & (bits % 2 == 0), bits + step, bits)
+    return odd.view(torch.float64).to(torch.float32)
+
+
+def robust_accuracy(acc, mode: str) -> torch.Tensor:
+    """(N, K) exact float64 accuracies ``c_k * inv_n`` → (N,) robust
+    accuracy as float64 holding the value the reference's float32 chain
+    feeds, unrounded, into ``1 - rob`` and ``baseline - rob``.
+
+    XLA:CPU computes the reference's ``jnp.mean`` (K >= 2) as a chain of
+    float32 fused multiply-adds ``s = fma(c_k, inv_n, s)`` over k = 0..K-1,
+    then multiplies by the float32 reciprocal ``fl(1/K)`` and fuses that
+    product into both subtractions; with K = 1 the reduction vanishes and
+    the product ``c_0 * inv_n`` itself is fused. ``"worst"`` is the
+    minimum of the float32-rounded products (rounding is monotone, so the
+    order does not matter), unrounded again at K = 1.
+    tests/test_torch_device_variation.py holds every form against the
+    reference's jitted objectives at K = 1, 2, 4, 6, 8 and 12."""
+    K = acc.shape[1]
+    if K == 1:
+        return acc[:, 0]
+    if mode == "worst":
+        return acc.to(torch.float32).amin(dim=-1).to(torch.float64)
+    s = torch.zeros(acc.shape[0], dtype=torch.float64, device=acc.device)
+    for k in range(K):
+        s = fused_f32(acc[:, k], s).to(torch.float64)
+    recip = torch.tensor(1.0 / K, dtype=torch.float32).item()   # fl(1/K)
+    return s * recip                  # exact: two float32 significands
 
 
 def fitness(problem: Problem, pop):
@@ -359,8 +455,9 @@ def init_state(problem: Problem, key, doping_seeds=None,
         obj, viol = fitness(problem, pop)
     else:
         if dedup_mode(cfg) == "cache":
+            val_shape = (cfg.n_device_samples,) if variation_on(cfg) else ()
             cache = cache_init(cfg.cache_slots, problem.genes.low.shape[0],
-                               cfg.cache_probes, device=dev)
+                               cfg.cache_probes, val_shape=val_shape, device=dev)
             counts, n_eval, cache = initial_counts(problem, pop, cache)
         else:
             counts, n_eval = initial_counts(problem, pop)

@@ -78,7 +78,7 @@ SLOT_CROSS_SWAP = 0   # uniform crossover's per-gene swap draw
 SLOT_MUT_DO = 1       # mutate: does gene (i, j) mutate at all?
 SLOT_MUT_VAL = 2      # mutate: flipped-bit position (masks) / reset value
 SLOT_INIT = 0         # random_population (separate key)
-SLOT_DEVICE = 3       # device-variation draws (not in this port yet)
+SLOT_DEVICE = 3       # device-variation draws (engine.device_deltas)
 
 _THREEFRY_PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -135,6 +135,16 @@ def gene_uniform_slots(key, ids: torch.Tensor, n: int, slots) -> torch.Tensor:
 def gene_uniform(key, ids: torch.Tensor, n: int, slot: int = 0) -> torch.Tensor:
     """(n, G) float32 uniforms addressed by (key, slot, ids[j], row)."""
     return gene_uniform_slots(key, ids, n, (slot,))[0]
+
+
+def apply_device_deltas(pop, deltas, high):
+    """Perturb exponent genes by one device instance's delta row.
+
+    pop (…, G) int32; deltas (G,) (or broadcastable) int32 in {-1, 0, +1};
+    high (G,) int32 exclusive upper bounds. Genes with delta 0 pass
+    through untouched; perturbed genes clip into [0, high-1] per gene."""
+    pert = torch.minimum(torch.maximum(pop + deltas, torch.zeros_like(pop)), high - 1)
+    return torch.where(deltas == 0, pop, pert)
 
 
 def random_population(key, genes: GeneTable, n: int) -> torch.Tensor:

@@ -6,7 +6,9 @@ dtypes: ``pop`` int32 (P, G), ``obj`` float32 (P, 2), ``viol`` float32
 (P,), ``rank`` int32 (P,), ``crowd`` float32 (P,), ``counts`` int32 (P,),
 ``key`` uint32 (2,), ``gen`` int32 (), and, when the state carries an
 EvalCache, ``cache.rows`` int32 (C, G), ``cache.vals`` int32 (C,),
-``cache.stamp`` int32 (C,) and ``cache.probes`` (an int).
+``cache.stamp`` int32 (C,) and ``cache.probes`` (an int). Under
+device-variation fitness ``obj`` is (P, 3), ``counts`` (P, K) and
+``cache.vals`` (C, K); the shapes carry across as they are.
 """
 from __future__ import annotations
 

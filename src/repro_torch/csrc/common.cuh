@@ -1,8 +1,10 @@
-// Device functions shared by the three GA kernels (sm_90a):
+// Device functions shared by the GA kernels (sm_90a):
 //   * the counter-based Threefry-2x32 draw of repro_torch/core/genome.py,
 //   * the integer forward pass + first-maximum argmax of repro_torch/core/mlp.py,
+//     nominal or on a perturbed device instance (apply_device_deltas),
 //   * the per-gene variation of repro_torch/kernels/pop_variation/ref.py,
-//   * the tile counter that sweeps samples over genomes held in shared memory.
+//   * the tile counters that sweep samples over genomes held in shared memory,
+//     for the nominal device and for K perturbed device instances.
 //
 // Bit-identity rules (each one mirrors XLA, which the JAX reference runs on):
 //   * all hashing is uint32_t with natural wraparound;
@@ -84,10 +86,29 @@ __device__ __forceinline__ int32_t sar(int32_t x, int32_t s) {
   return x >> ((s < 0 || s > 31) ? 31 : s);
 }
 
+// Exponent readers of predict(): gene e of genome g as the forward pass uses it.
+struct NominalExp {
+  __device__ __forceinline__ int32_t operator()(const int32_t* g, int e) const { return g[e]; }
+};
+
+// Device instance k: its delta row d (shared memory, in {-1, 0, +1}) moves an
+// exponent gene, which then clips into [0, high[e] - 1]; a gene with delta 0
+// passes through untouched (genome.apply_device_deltas). The deltas are zero off
+// the exponent genes (engine.device_deltas), so only exponents are read this way.
+struct PerturbedExp {
+  const int32_t* d;
+  const int32_t* high;
+  __device__ __forceinline__ int32_t operator()(const int32_t* g, int e) const {
+    const int32_t v = g[e], dv = d[e];
+    return dv == 0 ? v : min(max(v + dv, 0), high[e] - 1);
+  }
+};
+
 // Predicted class of genome g (shared memory) for one sample x (registers).
 // (static: every source includes this header and links into one library)
+template <class Exp>
 static __device__ int predict(const int32_t* __restrict__ g, const int32_t* x,
-                              const Net& net, const int32_t* out_mask) {
+                              const Net& net, const int32_t* out_mask, const Exp& exp) {
   int32_t h[kMaxWidth];
   int32_t o[kMaxWidth];
   for (int i = 0; i < net.layer[0].fan_in; ++i) h[i] = x[i];
@@ -100,7 +121,7 @@ static __device__ int predict(const int32_t* __restrict__ g, const int32_t* x,
       uint32_t acc = 0;
       for (int i = 0; i < L.fan_in; ++i) {
         const int w = i * L.fan_out + j;
-        const uint32_t term = static_cast<uint32_t>(shl(h[i] & g[L.masks + w], g[L.exps + w]));
+        const uint32_t term = static_cast<uint32_t>(shl(h[i] & g[L.masks + w], exp(g, L.exps + w)));
         const uint32_t sign = static_cast<uint32_t>(g[L.signs + w]) * 2u - 1u;  // {0,1} -> {-1,+1}
         acc += sign * term;
       }
@@ -143,7 +164,7 @@ static __device__ void count_tile(const int32_t* g_tile, int n_rows, int G,
     const int32_t y = labels[s];
 #pragma unroll
     for (int p = 0; p < kPopTile; ++p)
-      if (p < n_rows) local[p] += (predict(g_tile + p * G, xs, net, out_mask) == y);
+      if (p < n_rows) local[p] += (predict(g_tile + p * G, xs, net, out_mask, NominalExp{}) == y);
   }
 #pragma unroll
   for (int p = 0; p < kPopTile; ++p) {
@@ -154,6 +175,69 @@ static __device__ void count_tile(const int32_t* g_tile, int n_rows, int G,
   __syncthreads();
   if (threadIdx.x < n_rows && red[threadIdx.x]) atomicAdd(&counts[threadIdx.x], red[threadIdx.x]);
 }
+
+// count_tile over n_dev device instances: counts[p * n_dev + k] gains the correct
+// predictions of genome p perturbed by delta row k of `dev` (shared memory,
+// n_dev x G, with the exclusive gene bounds `high`). Each thread loads a sample
+// once and runs the n_dev x n_rows forwards on it. The sample loop is uniform
+// across the block (a thread past the end runs no forward but joins every
+// vote), so each warp reduces one (genome, instance) step with a ballot and lane
+// 0 adds it into `red` (kPopTile * n_dev ints of shared memory, zeroed and
+// synchronised by the caller); then one integer atomicAdd per (genome,
+// instance) and block lands it: exact and order independent, as count_tile.
+static __device__ void count_tile_mc(const int32_t* g_tile, int n_rows, int G,
+                                     const int32_t* __restrict__ x,
+                                     const int32_t* __restrict__ labels, int n_in,
+                                     int s_begin, int s_end, const Net& net,
+                                     const int32_t* out_mask, const int32_t* dev,
+                                     const int32_t* high, int n_dev, int32_t* red,
+                                     int32_t* counts) {
+  const int lane = threadIdx.x & 31;
+  for (int base = s_begin; base < s_end; base += blockDim.x) {
+    const int s = base + threadIdx.x;
+    const bool live = s < s_end;
+    int32_t xs[kMaxWidth];
+    int32_t y = -1;
+    if (live) {
+      for (int i = 0; i < n_in; ++i) xs[i] = x[static_cast<size_t>(s) * n_in + i];
+      y = labels[s];
+    }
+    for (int k = 0; k < n_dev; ++k) {
+      const PerturbedExp exp{dev + static_cast<size_t>(k) * G, high};
+      for (int p = 0; p < n_rows; ++p) {
+        const bool ok = live && predict(g_tile + p * G, xs, net, out_mask, exp) == y;
+        const unsigned votes = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0 && votes) atomicAdd(&red[p * n_dev + k], __popc(votes));
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_rows * n_dev; i += blockDim.x)
+    if (red[i]) atomicAdd(&counts[i], red[i]);
+}
+
+// Shared memory of the device-instance kernels, in order: the genome tile
+// (kPopTile x G), the delta table (n_dev x G), the gene bounds (G), the output
+// mask (kMaxWidth) and the per-block counts (kPopTile x n_dev).
+struct McSmem {
+  int32_t *g_tile, *dev, *high, *om, *red;
+  __device__ McSmem(int32_t* smem, int G, int n_dev)
+      : g_tile(smem),
+        dev(smem + kPopTile * G),
+        high(dev + static_cast<size_t>(n_dev) * G),
+        om(high + G),
+        red(om + kMaxWidth) {}
+
+  // Fills the delta table, the bounds, the output mask and zeroes the counts
+  // (the caller fills the genome tile and synchronises).
+  __device__ void load(const int32_t* __restrict__ dev_g, const int32_t* __restrict__ high_g,
+                       const int32_t* __restrict__ out_mask, int n_dev, int G, int n_out) {
+    for (int k = threadIdx.x; k < n_dev * G; k += blockDim.x) dev[k] = dev_g[k];
+    for (int k = threadIdx.x; k < G; k += blockDim.x) high[k] = high_g[k];
+    if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
+    for (int k = threadIdx.x; k < kPopTile * n_dev; k += blockDim.x) red[k] = 0;
+  }
+};
 
 struct Genes {
   const int32_t* low;
@@ -214,6 +298,20 @@ __device__ __forceinline__ void child_pair(int r, int j, int P, int G,
 
 inline int fitness_smem_bytes(int G) {
   return static_cast<int>(sizeof(int32_t)) * (kPopTile * G + kMaxWidth + kPopTile);
+}
+
+// McSmem's size (kernels/_cuda.py mc_smem_bytes computes the same).
+inline int fitness_mc_smem_bytes(int G, int n_dev) {
+  return static_cast<int>(sizeof(int32_t)) *
+         (kPopTile * G + n_dev * G + G + kMaxWidth + kPopTile * n_dev);
+}
+
+// Raises a kernel's dynamic shared-memory limit to `smem` bytes where it needs
+// more than the default 48 KB; the error of a size past the card's limit.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace repro_torch

@@ -1,8 +1,11 @@
-// K3 pop_generation_kernel (nominal branch): the K2 variation inputs plus the
-// dataset -> ((P, G) int32 children, (P,) int32 correct counts), fused.
+// K3 pop_generation_kernel: the K2 variation inputs plus the dataset -> ((P, G)
+// int32 children, (P,) int32 correct counts), fused. Its n_dev branch (kMc)
+// takes the (K, G) device-variation delta table too and counts each child on
+// the K perturbed device instances -> (P, K) int32 counts; the children are the
+// nominal branch's.
 //
-// Replaces the nominal branch of the Pallas TPU megakernel
-// repro/kernels/pop_generation/kernel.py:pop_generation_kernel.
+// Replaces the Pallas TPU megakernel
+// repro/kernels/pop_generation/kernel.py:pop_generation_kernel, both branches.
 //
 // Bound on an H100: integer operations, as for K1 (the fitness sweep needs
 // 2 int32 ops per weight per (child, sample)); the variation adds about 2
@@ -14,10 +17,13 @@
 // fills; only the grid.y == 0 block writes them out. Every child is evaluated
 // (no row bound); sample chunks past the device scalar n_valid_samples skip
 // their sweep. P must be even (pairs never straddle a tile: kPopTile is even).
+// The n_dev branch keeps the delta table and the gene bounds in shared memory
+// beside the children (McSmem) and sweeps with count_tile_mc.
 #include "common.cuh"
 
 namespace repro_torch {
 
+template <bool kMc>
 __global__ void __launch_bounds__(kThreads)
 pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restrict__ b_rows,
                       const int32_t* __restrict__ do_rows, Genes t,
@@ -25,12 +31,13 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
                       int P, int G, const int32_t* __restrict__ x,
                       const int32_t* __restrict__ labels, int S, int n_in,
                       const int32_t* __restrict__ n_valid_samples,
-                      const int32_t* __restrict__ out_mask, Net net, int32_t* children,
-                      int32_t* counts) {
+                      const int32_t* __restrict__ out_mask, const int32_t* __restrict__ dev,
+                      int n_dev, Net net, int32_t* children, int32_t* counts) {
   extern __shared__ int32_t smem[];
+  McSmem sm(smem, G, n_dev);   // kMc only; the nominal layout follows
   int32_t* g_tile = smem;
-  int32_t* om = g_tile + kPopTile * G;
-  int32_t* red = om + kMaxWidth;
+  int32_t* om = kMc ? sm.om : g_tile + kPopTile * G;
+  int32_t* red = kMc ? sm.red : om + kMaxWidth;
 
   const int row0 = blockIdx.x * kPopTile;
   const int n_rows = min(kPopTile, P - row0);
@@ -47,8 +54,12 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
     }
   }
   const int n_out = net.layer[net.n_layers - 1].fan_out;
-  if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
-  if (threadIdx.x < kPopTile) red[threadIdx.x] = 0;
+  if (kMc) {
+    sm.load(dev, t.high, out_mask, n_dev, G, n_out);
+  } else {
+    if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
+    if (threadIdx.x < kPopTile) red[threadIdx.x] = 0;
+  }
   __syncthreads();
   if (blockIdx.y == 0)
     for (int k = threadIdx.x; k < n_rows * G; k += blockDim.x)
@@ -57,7 +68,32 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
   const int s_begin = blockIdx.y * kSampleChunk;
   const int s_end = min(min(S, *n_valid_samples), s_begin + kSampleChunk);
   if (s_begin >= s_end) return;  // uniform across the block
-  count_tile(g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, om, red, counts + row0);
+  if (kMc)
+    count_tile_mc(g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, om, sm.dev, sm.high,
+                  n_dev, red, counts + static_cast<size_t>(row0) * n_dev);
+  else
+    count_tile(g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, om, red, counts + row0);
+}
+
+// Both branches' launch: n_dev == 0 (dev null) is the nominal branch.
+int launch_generation(const int32_t* a_rows, const int32_t* b_rows, const int32_t* do_rows,
+                      const Genes& t, const uint32_t* slot_keys, const float* pm, int P, int G,
+                      const int32_t* x, const int32_t* labels, int S, int n_in,
+                      const int32_t* n_valid_samples, const int32_t* out_mask,
+                      const int32_t* dev, int n_dev, const int32_t* net_desc,
+                      int32_t* children, int32_t* counts, void* stream) {
+  const Net net = net_from_desc(net_desc);
+  const bool mc = n_dev > 0;
+  const int smem = mc ? fitness_mc_smem_bytes(G, n_dev) : fitness_smem_bytes(G);
+  const auto kernel = mc ? pop_generation_kernel<true> : pop_generation_kernel<false>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
+  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a_rows, b_rows, do_rows, t, slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples,
+      out_mask, dev, n_dev, net, children, counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro_torch
@@ -73,18 +109,23 @@ extern "C" int pop_generation_launch(const int32_t* a_rows, const int32_t* b_row
                                      const int32_t* n_valid_samples, const int32_t* out_mask,
                                      const int32_t* net_desc, int32_t* children,
                                      int32_t* counts, void* stream) {
-  const Genes t{low, high, is_mask, mask_bits, ids};
-  const Net net = net_from_desc(net_desc);
-  const int smem = fitness_smem_bytes(G);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pop_generation_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
-  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
-  pop_generation_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a_rows, b_rows, do_rows, t, slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples,
-      out_mask, net, children, counts);
-  return static_cast<int>(cudaGetLastError());
+  return launch_generation(a_rows, b_rows, do_rows, Genes{low, high, is_mask, mask_bits, ids},
+                           slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
+                           nullptr, 0, net_desc, children, counts, stream);
+}
+
+// The n_dev branch: dev is the (n_dev, G) delta table, n_dev >= 1; counts (P, n_dev).
+extern "C" int pop_generation_mc_launch(const int32_t* a_rows, const int32_t* b_rows,
+                                        const int32_t* do_rows, const int32_t* low,
+                                        const int32_t* high, const int32_t* is_mask,
+                                        const int32_t* mask_bits, const int32_t* ids,
+                                        const uint32_t* slot_keys, const float* pm, int P,
+                                        int G, const int32_t* x, const int32_t* labels, int S,
+                                        int n_in, const int32_t* n_valid_samples,
+                                        const int32_t* out_mask, const int32_t* dev, int n_dev,
+                                        const int32_t* net_desc, int32_t* children,
+                                        int32_t* counts, void* stream) {
+  return launch_generation(a_rows, b_rows, do_rows, Genes{low, high, is_mask, mask_bits, ids},
+                           slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
+                           dev, n_dev, net_desc, children, counts, stream);
 }

@@ -1,7 +1,10 @@
 // K1 pop_mlp_correct: (P, G) int32 genomes x (S, n_in) int32 samples x (S,) int32
 // labels -> (P,) int32 correct counts of the integer approximate MLP.
+// K4 pop_mlp_correct_mc: the same over K device instances -> (P, K) int32 counts
+// (at the end of this file).
 //
-// Replaces the Pallas TPU kernel repro/kernels/pop_mlp/kernel.py:pop_mlp_correct.
+// Replaces the Pallas TPU kernels repro/kernels/pop_mlp/kernel.py:pop_mlp_correct
+// and :pop_mlp_correct_mc.
 //
 // Bound on an H100: integer operations. Each (chromosome, sample) pair needs at
 // least 2 int32 ops per weight through every layer (an AND on the ALU pipe and a
@@ -49,6 +52,36 @@ pop_mlp_correct_kernel(const int32_t* __restrict__ pop, int P, int G,
   count_tile(g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, om, red, counts + row0);
 }
 
+// K4: device-variation Monte-Carlo counts. As K1, with the (K, G) delta table
+// and the gene bounds beside the genome tile in shared memory (McSmem: 28 KB at
+// pendigits, K = 8); each thread loads a sample once and runs the K perturbed
+// forwards of the tile's genomes on it (count_tile_mc). Rows past n_valid_rows
+// are skipped on every instance and keep their zeros.
+__global__ void __launch_bounds__(kThreads)
+pop_mlp_correct_mc_kernel(const int32_t* __restrict__ pop, int P, int G,
+                          const int32_t* __restrict__ x, const int32_t* __restrict__ labels,
+                          int S, int n_in, const int32_t* __restrict__ n_valid_rows,
+                          const int32_t* __restrict__ n_valid_samples,
+                          const int32_t* __restrict__ out_mask,
+                          const int32_t* __restrict__ dev, const int32_t* __restrict__ high,
+                          int n_dev, Net net, int32_t* counts) {
+  extern __shared__ int32_t smem[];
+  McSmem sm(smem, G, n_dev);
+
+  const int row0 = blockIdx.x * kPopTile;
+  const int n_rows = min(kPopTile, min(P, *n_valid_rows) - row0);
+  const int s_begin = blockIdx.y * kSampleChunk;
+  const int s_end = min(min(S, *n_valid_samples), s_begin + kSampleChunk);
+  if (n_rows <= 0 || s_begin >= s_end) return;  // whole block past a bound
+
+  for (int k = threadIdx.x; k < n_rows * G; k += blockDim.x)
+    sm.g_tile[k] = pop[static_cast<size_t>(row0) * G + k];
+  sm.load(dev, high, out_mask, n_dev, G, net.layer[net.n_layers - 1].fan_out);
+  __syncthreads();
+  count_tile_mc(sm.g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, sm.om, sm.dev,
+                sm.high, n_dev, sm.red, counts + static_cast<size_t>(row0) * n_dev);
+}
+
 }  // namespace repro_torch
 
 using namespace repro_torch;
@@ -61,14 +94,31 @@ extern "C" int pop_mlp_correct_launch(const int32_t* pop, int P, int G, const in
                                       int32_t* counts, void* stream) {
   const Net net = net_from_desc(net_desc);
   const int smem = fitness_smem_bytes(G);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pop_mlp_correct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem(pop_mlp_correct_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
   const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
   pop_mlp_correct_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       pop, P, G, x, labels, S, n_in, n_valid_rows, n_valid_samples, out_mask, net, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pop_mlp_correct_mc_launch(const int32_t* pop, int P, int G, const int32_t* x,
+                                         const int32_t* labels, int S, int n_in,
+                                         const int32_t* n_valid_rows,
+                                         const int32_t* n_valid_samples,
+                                         const int32_t* out_mask, const int32_t* dev,
+                                         const int32_t* high, int n_dev,
+                                         const int32_t* net_desc, int32_t* counts,
+                                         void* stream) {
+  const Net net = net_from_desc(net_desc);
+  const int smem = fitness_mc_smem_bytes(G, n_dev);
+  const cudaError_t e = allow_smem(pop_mlp_correct_mc_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
+  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
+  pop_mlp_correct_mc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pop, P, G, x, labels, S, n_in, n_valid_rows, n_valid_samples, out_mask, dev, high, n_dev,
+      net, counts);
   return static_cast<int>(cudaGetLastError());
 }

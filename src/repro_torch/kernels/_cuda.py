@@ -33,7 +33,8 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC
                  "-Xptxas", "-v")
 
 LAUNCHES = dict.fromkeys(("pop_mlp_correct", "pop_variation_kernel",
-                          "pop_generation_kernel"), 0)
+                          "pop_generation_kernel", "pop_mlp_correct_mc",
+                          "pop_generation_kernel_mc"), 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer (device buffers, host descriptor, stream) is a
@@ -43,6 +44,10 @@ _SIGNATURES = {
     "pop_variation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
     "pop_generation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                               _I, _I, _P, _P, _P, _P, _P, _P),
+    "pop_mlp_correct_mc_launch": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+                                  _P, _P),
+    "pop_generation_mc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                                 _I, _I, _P, _P, _P, _I, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -168,6 +173,18 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_smem(nbytes: int, device: torch.device, what: str) -> None:
+    """Raise unless a block of ``nbytes`` dynamic shared memory fits the
+    card's per-block limit (the opt-in maximum the launchers raise to; a
+    torch that does not report it leaves the check to the launcher, whose
+    ``cudaFuncSetAttribute`` refuses the size)."""
+    props = torch.cuda.get_device_properties(device)
+    limit = getattr(props, "shared_memory_per_block_optin", None)
+    if limit is not None and nbytes > limit:
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per block, "
+                         f"more than the card's {limit} B")
 
 
 def device_scalar(v, default: int, device: torch.device) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Wrapper of the CUDA megakernel ``pop_generation_kernel``
-(``csrc/pop_generation.cu``), nominal branch.
+(``csrc/pop_generation.cu``), both branches.
 
 Replaces the Pallas TPU kernel ``repro/kernels/pop_generation/kernel.py:
-pop_generation_kernel`` without its device-variation ``n_dev`` branch:
-pre-gathered parent frames + the dataset → ((P, G) int32 children, (P,)
-int32 correct counts). Each tile's children are made by the variation math
-of ``pop_variation`` and scored by the fitness math of ``pop_mlp`` without
-leaving the block's shared memory. Every child is evaluated.
+pop_generation_kernel``: pre-gathered parent frames + the dataset → ((P, G)
+int32 children, (P,) int32 correct counts). Each tile's children are made
+by the variation math of ``pop_variation`` and scored by the fitness math
+of ``pop_mlp`` without leaving the block's shared memory. Every child is
+evaluated. Its ``n_dev`` branch (``dev``, a (K, G) device-variation delta
+table) scores each child on the K perturbed device instances instead:
+(P, K) counts, the same children.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`pop_generation_plain`.
@@ -17,7 +19,8 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
-from ..pop_mlp.kernel import net_desc, out_mask_or_ones, pop_mlp_correct_plain
+from ..pop_mlp.kernel import (check_deltas, net_desc, out_mask_or_ones,
+                              pop_mlp_correct_mc_plain, pop_mlp_correct_plain)
 from ..pop_variation.kernel import (VARIATION_OPERANDS, pop_variation_plain,
                                     variation_operands)
 
@@ -25,12 +28,17 @@ from ..pop_variation.kernel import (VARIATION_OPERANDS, pop_variation_plain,
 def pop_generation_plain(a_rows, b_rows, do_rows, table_low, table_high,
                          table_is_mask, table_mask_bits, table_ids, slot_keys,
                          pm_gene, x_int, labels, *, spec: GenomeSpec,
-                         n_valid_samples=None, out_mask=None):
+                         n_valid_samples=None, out_mask=None, dev=None):
     """The kernel's plain PyTorch version: the variation kernel's plain
-    version, then the fitness kernel's, with no row bound."""
+    version, then the fitness kernel's (with ``dev``, the device-instance
+    one against the bounds ``table_high``), with no row bound."""
     children = pop_variation_plain(a_rows, b_rows, do_rows, table_low,
                                    table_high, table_is_mask, table_mask_bits,
                                    table_ids, slot_keys, pm_gene)
+    if dev is not None:
+        return children, pop_mlp_correct_mc_plain(
+            children, x_int, labels, spec=spec, dev=dev, gene_high=table_high,
+            n_valid_samples=n_valid_samples, out_mask=out_mask)
     counts = pop_mlp_correct_plain(children, x_int, labels, spec=spec,
                                    n_valid_samples=n_valid_samples,
                                    out_mask=out_mask)
@@ -40,11 +48,12 @@ def pop_generation_plain(a_rows, b_rows, do_rows, table_low, table_high,
 def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
                         table_is_mask, table_mask_bits, table_ids, slot_keys,
                         pm_gene, x_int, labels, *, spec: GenomeSpec,
-                        n_valid_samples=None, out_mask=None):
+                        n_valid_samples=None, out_mask=None, dev=None):
     """The checked launch of the kernel on CUDA tensors, and the children
     and zeroed counts it fills → (launch, children, counts) (arguments as
-    :func:`pop_generation_kernel`; P, G > 0)."""
-    dev = a_rows.device
+    :func:`pop_generation_kernel`; P, G > 0). With ``dev`` it is the
+    ``n_dev`` branch, counted as ``pop_generation_kernel_mc``."""
+    deltas, dev = dev, a_rows.device
     if dev.type != "cuda":
         raise ValueError(f"pop_generation_kernel launches on CUDA tensors, got {dev}")
     P, G = a_rows.shape
@@ -63,35 +72,45 @@ def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
     _cuda.check(om, "out_mask", torch.int32, (n_out,), dev)
     samp = _cuda.device_scalar(n_valid_samples, S, dev)
     children = torch.empty((P, G), dtype=torch.int32, device=dev)
-    counts = torch.zeros(P, dtype=torch.int32, device=dev)
-    args = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), P, G, x_int.data_ptr(),
-            labels.data_ptr(), S, n_in, samp.data_ptr(), om.data_ptr(), desc,
-            children.data_ptr(), counts.data_ptr())
-    keep = (*o.values(), x_int, labels, samp, om, desc, children, counts)
-    return (_cuda.Launch("pop_generation_kernel", "pop_generation_launch", args, keep),
-            children, counts)
+    head = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), P, G, x_int.data_ptr(),
+            labels.data_ptr(), S, n_in, samp.data_ptr(), om.data_ptr())
+    keep = (*o.values(), x_int, labels, samp, om, desc, children)
+    if deltas is None:
+        counts = torch.zeros(P, dtype=torch.int32, device=dev)
+        launch = _cuda.Launch("pop_generation_kernel", "pop_generation_launch",
+                              (*head, desc, children.data_ptr(), counts.data_ptr()),
+                              (*keep, counts))
+        return launch, children, counts
+    d, _ = check_deltas(deltas, o["high"], G, dev)
+    counts = torch.zeros((P, d.shape[0]), dtype=torch.int32, device=dev)
+    launch = _cuda.Launch("pop_generation_kernel_mc", "pop_generation_mc_launch",
+                          (*head, d.data_ptr(), d.shape[0], desc, children.data_ptr(),
+                           counts.data_ptr()), (*keep, d, counts))
+    return launch, children, counts
 
 
 def pop_generation_kernel(a_rows, b_rows, do_rows, table_low, table_high,
                           table_is_mask, table_mask_bits, table_ids,
                           slot_keys, pm_gene, x_int, labels, *,
                           spec: GenomeSpec, n_valid_samples=None,
-                          out_mask=None):
+                          out_mask=None, dev=None):
     """Parent frames (see ``pop_variation_kernel``) + dataset →
     (children, counts). ``n_valid_samples`` (int or () int32 device
     tensor) bounds the counted samples; ``out_mask`` marks the valid output
-    columns."""
+    columns. ``dev`` ((K, G) deltas, zero off the exponent genes): the
+    counts are (P, K), child p on device instance k, its exponents clipped
+    into ``[0, table_high - 1]``."""
     if a_rows.device.type == "cpu":
         return pop_generation_plain(a_rows, b_rows, do_rows, table_low,
                                     table_high, table_is_mask, table_mask_bits,
                                     table_ids, slot_keys, pm_gene, x_int,
                                     labels, spec=spec,
                                     n_valid_samples=n_valid_samples,
-                                    out_mask=out_mask)
+                                    out_mask=out_mask, dev=dev)
     launch, children, counts = pop_generation_call(
         a_rows, b_rows, do_rows, table_low, table_high, table_is_mask,
         table_mask_bits, table_ids, slot_keys, pm_gene, x_int, labels,
-        spec=spec, n_valid_samples=n_valid_samples, out_mask=out_mask)
+        spec=spec, n_valid_samples=n_valid_samples, out_mask=out_mask, dev=dev)
     if children.numel():
         launch()
     return children, counts

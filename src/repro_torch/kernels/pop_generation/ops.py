@@ -3,7 +3,8 @@
 Backends (``GAConfig.backends.generation``):
   "auto"   — the megakernel path on a CUDA tensor, "ref" elsewhere (default)
   "kernel" — variation + fitness fused in the CUDA kernel
-             ``pop_generation_kernel`` (CUDA tensors only)
+             ``pop_generation_kernel`` (CUDA tensors only; its ``n_dev``
+             branch under device-variation fitness)
   "ref"    — the plain generation with the cross-generation EvalCache
   "phases" — the per-phase chain (variation dispatcher → within-generation
              dedup → ranking), cache untouched
@@ -42,12 +43,14 @@ def _generation_kernel(problem, state):
         t.ids, _slot_keys(k_var, _VARIATION_SLOTS),
         problem.mutation_rate_gene, problem.x_int, problem.labels,
         spec=problem.spec, n_valid_samples=problem.n_valid_samples,
-        out_mask=problem.out_mask)
+        out_mask=problem.out_mask,
+        dev=engine.device_deltas(problem) if engine.variation_on(cfg) else None)
     pop = torch.cat([state.pop, children], dim=0)
     if engine.dedup_mode(cfg) != "off":
         counts = torch.cat([state.counts, child_counts])
-    else:
-        counts = torch.zeros((2 * P,), dtype=torch.int32, device=pop.device)
+    else:   # unused placeholders of the state's count shape ((P,) or (P, K))
+        counts = torch.zeros((2 * P,) + state.counts.shape[1:], dtype=torch.int32,
+                             device=pop.device)
     c_obj, c_viol = engine.objectives(
         problem, children, engine.counts_accuracy(problem, child_counts))
     n_eval = torch.tensor(P, dtype=torch.int32, device=pop.device)

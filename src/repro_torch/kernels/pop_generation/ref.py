@@ -64,8 +64,9 @@ def pop_generation_ref(problem, state, use_cache: bool = True):
             ids=problem.genes.ids)
         c_obj, c_viol = engine.objectives(
             problem, children, engine.counts_accuracy(problem, counts[P:]))
-    else:
-        counts = torch.zeros((2 * P,), dtype=torch.int32, device=pop.device)
+    else:   # unused placeholders of the state's count shape ((P,) or (P, K))
+        counts = torch.zeros((2 * P,) + state.counts.shape[1:], dtype=torch.int32,
+                             device=pop.device)
         c_obj, c_viol = engine.fitness(problem, children)
         n_eval = torch.tensor(P, dtype=torch.int32, device=pop.device)
     return _rank_and_select(state, pop, counts, c_obj, c_viol, key, cache,

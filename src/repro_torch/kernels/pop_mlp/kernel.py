@@ -1,13 +1,18 @@
-"""Wrapper of the CUDA kernel ``pop_mlp_correct`` (``csrc/pop_mlp.cu``).
+"""Wrappers of the CUDA kernels ``pop_mlp_correct`` and
+``pop_mlp_correct_mc`` (``csrc/pop_mlp.cu``).
 
-Replaces the Pallas TPU kernel ``repro/kernels/pop_mlp/kernel.py:
-pop_mlp_correct``: (P, G) int32 genomes × (S, n_in) int32 samples × (S,)
-int32 labels → (P,) int32 correct counts of the integer approximate MLP.
-The source's header says what bounds it on the card and how it is laid out.
+``pop_mlp_correct`` replaces the Pallas TPU kernel ``repro/kernels/pop_mlp/
+kernel.py:pop_mlp_correct``: (P, G) int32 genomes × (S, n_in) int32 samples
+× (S,) int32 labels → (P,) int32 correct counts of the integer approximate
+MLP. ``pop_mlp_correct_mc`` replaces ``pop_mlp_correct_mc`` there: the same
+over K device instances given by a (K, G) delta table → (P, K) counts.
+The source's header says what bounds them on the card and how they are
+laid out.
 
-On a CUDA tensor the wrapper checks its inputs and launches the kernel on
+On a CUDA tensor a wrapper checks its inputs and launches its kernel on
 the current stream; on a CPU tensor it runs the plain version
-(``ref.pop_mlp_correct_tiled``). It never falls back from one to the other.
+(``ref.pop_mlp_correct_tiled``, ``ref.pop_mlp_correct_mc``). It never
+falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -15,10 +20,12 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
+from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_plain
 from .ref import pop_mlp_correct_tiled
 
 MAX_LAYERS = 4   # csrc/common.cuh kMaxLayers
 MAX_WIDTH = 32   # csrc/common.cuh kMaxWidth
+POP_TILE = 8     # csrc/common.cuh kPopTile
 
 
 def net_desc(spec: GenomeSpec) -> list[int]:
@@ -49,12 +56,15 @@ pop_mlp_correct_plain = pop_mlp_correct_tiled
 
 def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
                          n_valid_rows=None, n_valid_samples=None,
-                         out_mask=None) -> tuple[_cuda.Launch, torch.Tensor]:
+                         out_mask=None, dev=None, gene_high=None
+                         ) -> tuple[_cuda.Launch, torch.Tensor]:
     """The checked launch of the kernel on CUDA tensors, and the zeroed
-    counts it adds into (arguments as :func:`pop_mlp_correct`; P > 0)."""
-    dev = pop.device
-    if dev.type != "cuda":
-        raise ValueError(f"pop_mlp_correct launches on CUDA tensors, got {dev}")
+    counts it adds into (arguments as :func:`pop_mlp_correct`; P > 0).
+    With ``dev`` and ``gene_high`` it is ``pop_mlp_correct_mc``'s launch
+    and the counts are (P, K)."""
+    device = pop.device
+    if device.type != "cuda":
+        raise ValueError(f"pop_mlp_correct launches on CUDA tensors, got {device}")
     P, G = pop.shape
     S, n_in = x_int.shape
     n_out = spec.topo.sizes[-1]
@@ -62,18 +72,27 @@ def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
         raise ValueError(f"shapes pop {tuple(pop.shape)} / x {tuple(x_int.shape)} "
                          f"do not fit topology {spec.topo.sizes}")
     desc = _cuda.host_ints(net_desc(spec))
-    _cuda.check(pop, "pop", torch.int32, (P, G), dev)
-    _cuda.check(x_int, "x_int", torch.int32, (S, n_in), dev)
-    _cuda.check(labels, "labels", torch.int32, (S,), dev)
-    om = out_mask_or_ones(out_mask, n_out, dev)
-    _cuda.check(om, "out_mask", torch.int32, (n_out,), dev)
-    rows = _cuda.device_scalar(n_valid_rows, P, dev)
-    samp = _cuda.device_scalar(n_valid_samples, S, dev)
-    counts = torch.zeros(P, dtype=torch.int32, device=dev)
-    keep = (pop, x_int, labels, rows, samp, om, desc, counts)
-    args = (pop.data_ptr(), P, G, x_int.data_ptr(), labels.data_ptr(), S, n_in,
-            rows.data_ptr(), samp.data_ptr(), om.data_ptr(), desc, counts.data_ptr())
-    return _cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch", args, keep), counts
+    _cuda.check(pop, "pop", torch.int32, (P, G), device)
+    _cuda.check(x_int, "x_int", torch.int32, (S, n_in), device)
+    _cuda.check(labels, "labels", torch.int32, (S,), device)
+    om = out_mask_or_ones(out_mask, n_out, device)
+    _cuda.check(om, "out_mask", torch.int32, (n_out,), device)
+    rows = _cuda.device_scalar(n_valid_rows, P, device)
+    samp = _cuda.device_scalar(n_valid_samples, S, device)
+    head = (pop.data_ptr(), P, G, x_int.data_ptr(), labels.data_ptr(), S, n_in,
+            rows.data_ptr(), samp.data_ptr(), om.data_ptr())
+    keep = (pop, x_int, labels, rows, samp, om, desc)
+    if dev is None:
+        counts = torch.zeros(P, dtype=torch.int32, device=device)
+        return (_cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch",
+                             (*head, desc, counts.data_ptr()), (*keep, counts)),
+                counts)
+    d, hi = check_deltas(dev, gene_high, G, device)
+    counts = torch.zeros((P, d.shape[0]), dtype=torch.int32, device=device)
+    return (_cuda.Launch("pop_mlp_correct_mc", "pop_mlp_correct_mc_launch",
+                         (*head, d.data_ptr(), hi.data_ptr(), d.shape[0], desc,
+                          counts.data_ptr()), (*keep, d, hi, counts)),
+            counts)
 
 
 def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
@@ -96,6 +115,56 @@ def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
                                           n_valid_rows=n_valid_rows,
                                           n_valid_samples=n_valid_samples,
                                           out_mask=out_mask)
+    if pop.shape[0]:
+        launch()
+    return counts
+
+
+def check_deltas(dev, gene_high, G: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (K, G) delta table and the (G,) gene bounds as contiguous int32
+    tensors on ``device`` (K >= 1), checked."""
+    if dev.dim() != 2 or dev.shape[0] < 1:
+        raise ValueError(f"dev must be a (K, G) delta table with K >= 1, got "
+                         f"shape {tuple(dev.shape)}")
+    if gene_high is None:
+        raise ValueError("dev needs gene_high (per-gene exclusive upper bounds)")
+    d = dev.to(dtype=torch.int32).contiguous()
+    hi = gene_high.to(dtype=torch.int32).contiguous()
+    _cuda.check(d, "dev", torch.int32, (dev.shape[0], G), device)
+    _cuda.check(hi, "gene_high", torch.int32, (G,), device)
+    _cuda.check_smem(mc_smem_bytes(G, d.shape[0]), device,
+                     f"a device-instance kernel at G={G}, K={d.shape[0]}")
+    return d, hi
+
+
+def mc_smem_bytes(G: int, n_dev: int) -> int:
+    """Dynamic shared memory of the device-instance kernels (``csrc/
+    common.cuh`` ``fitness_mc_smem_bytes``): genome tile, delta table, gene
+    bounds, output mask and per-block counts."""
+    return 4 * (POP_TILE * G + n_dev * G + G + MAX_WIDTH + POP_TILE * n_dev)
+
+
+def pop_mlp_correct_mc(pop, x_int, labels, dev, gene_high, *,
+                       spec: GenomeSpec, n_valid_rows=None,
+                       n_valid_samples=None, out_mask=None) -> torch.Tensor:
+    """(P, G) × (S, n_in) × (S,) × (K, G) deltas × (G,) bounds → (P, K)
+    int32 correct counts: column k scores each genome with its exponent
+    genes moved by ``dev[k]`` and clipped into ``[0, gene_high - 1]``.
+    The deltas must be zero off the exponent genes, as
+    ``engine.device_deltas`` makes them. Bounds and ``out_mask`` as
+    :func:`pop_mlp_correct`; a row past ``n_valid_rows`` is 0 in every
+    column."""
+    if pop.device.type == "cpu":
+        return pop_mlp_correct_mc_plain(pop, x_int, labels, spec=spec, dev=dev,
+                                        gene_high=gene_high,
+                                        n_valid_rows=n_valid_rows,
+                                        n_valid_samples=n_valid_samples,
+                                        out_mask=out_mask)
+    launch, counts = pop_mlp_correct_call(pop, x_int, labels, spec=spec,
+                                          n_valid_rows=n_valid_rows,
+                                          n_valid_samples=n_valid_samples,
+                                          out_mask=out_mask, dev=dev,
+                                          gene_high=gene_high)
     if pop.shape[0]:
         launch()
     return counts

@@ -11,12 +11,19 @@ path: rows past it are not evaluated and come back 0 on "kernel"/"ref"
 (callers overwrite them). ``n_valid_samples`` bounds the counted samples
 the same way. ``out_mask`` ((n_out,)) pins invalid output columns to
 INT32_MIN before the argmax on every backend.
+
+With ``dev`` ((K, G) device-variation deltas, ``engine.device_deltas``)
+and ``gene_high`` ((G,) exclusive gene bounds) every chromosome is scored
+on the K perturbed device instances: (P, K) counts, through the CUDA
+kernel ``pop_mlp_correct_mc`` ("kernel") or its tiled plain version
+("ref"). The "jnp" oracle has no instance axis and rejects ``dev``.
 """
 from __future__ import annotations
 
 from ..backend import FITNESS_BACKENDS as BACKENDS, pick
-from .kernel import pop_mlp_correct
+from .kernel import pop_mlp_correct, pop_mlp_correct_mc
 from .ref import pop_mlp_correct_ref, pop_mlp_correct_tiled
+from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_ref
 
 __all__ = ["BACKENDS", "population_correct"]
 
@@ -24,9 +31,29 @@ __all__ = ["BACKENDS", "population_correct"]
 def population_correct(pop, x_int, labels, *, spec, backend=None,
                        pop_tile: int = 64, sample_tile: int = 256,
                        n_valid_rows=None, n_valid_samples=None,
-                       out_mask=None):
-    """(P, G) × (S, n_in) × (S,) → (P,) int32 correct counts."""
+                       out_mask=None, dev=None, gene_high=None):
+    """(P, G) × (S, n_in) × (S,) → (P,) int32 correct counts, or (P, K)
+    with ``dev``."""
     backend = pick("fitness", backend, pop.device)
+    if dev is not None:
+        if backend == "jnp":
+            raise ValueError("the 'jnp' fitness oracle has no "
+                             "device-instance axis; use ref/kernel/auto "
+                             "for dev != None")
+        if gene_high is None:
+            raise ValueError("dev needs gene_high (per-gene exclusive "
+                             "upper bounds, GeneTable.high)")
+        if backend == "kernel":
+            return pop_mlp_correct_mc(pop, x_int, labels, dev, gene_high,
+                                      spec=spec, n_valid_rows=n_valid_rows,
+                                      n_valid_samples=n_valid_samples,
+                                      out_mask=out_mask)
+        return pop_mlp_correct_mc_ref(pop, x_int, labels, spec=spec, dev=dev,
+                                      gene_high=gene_high, pop_tile=pop_tile,
+                                      sample_tile=sample_tile,
+                                      n_valid_rows=n_valid_rows,
+                                      n_valid_samples=n_valid_samples,
+                                      out_mask=out_mask)
     if backend == "kernel":
         return pop_mlp_correct(pop, x_int, labels, spec=spec,
                                n_valid_rows=n_valid_rows,

@@ -103,3 +103,58 @@ def test_cache_init_and_unique_rows():
     rows = np.array([[1, 2], [0, 1], [1, 2]])
     uniq, inv = td.unique_rows(rows)
     np.testing.assert_array_equal(uniq[inv], rows)
+
+
+# -- values with a trailing axis (one count per device instance) ------------
+
+K_COLS = 4
+_COL_W = np.arange(1, K_COLS + 1, dtype=np.int32)
+
+
+def _j_eval_k(batch, n_valid):
+    del n_valid
+    return jnp.sum(batch, axis=1)[:, None] * jnp.asarray(_COL_W)[None, :]
+
+
+def _t_eval_k(batch, n_valid):
+    """(N, K) synthetic counts; rows past n_valid are not evaluated (0)."""
+    out = batch.sum(dim=1, dtype=torch.int32)[:, None] * torch.as_tensor(_COL_W)
+    return torch.where((torch.arange(len(batch)) < n_valid)[:, None], out, 0)
+
+
+@pytest.mark.parametrize("capacity", [4, 64])
+def test_dedup_eval_with_cache_and_k_columns_matches_reference(capacity):
+    """(N, K) values through the cache (``val_shape=(K,)``) and known rows:
+    row masks broadcast over the K columns as in the reference."""
+    rng = np.random.default_rng(10 + capacity)
+    uniq = np.unique(rng.integers(0, 50, (40, 5)), axis=0)[:16].astype(np.int32)
+    cj = jd.cache_init(capacity, 5, val_shape=(K_COLS,))
+    ct = td.cache_init(capacity, 5, val_shape=(K_COLS,))
+    assert tuple(ct.vals.shape) == (cj.capacity, K_COLS)
+    known_j = known_t = None
+    for call in range(6):
+        rows = uniq[rng.integers(0, 16, 12)]
+        kw_j = {} if known_j is None else {"known": known_j}
+        kw_t = {} if known_t is None else {"known": known_t}
+        oj, ej, hj, cj = jd.dedup_eval(_j_eval_k, jnp.asarray(rows), cache=cj,
+                                       gen=jnp.int32(call), **kw_j)
+        ot, et, ht, ct = td.dedup_eval(_t_eval_k, torch.as_tensor(rows), cache=ct,
+                                       gen=call, **kw_t)
+        assert tuple(ot.shape) == (12, K_COLS)
+        assert_bits_equal(oj, ot, f"call {call}")
+        assert (int(ej), int(hj)) == (int(et), int(ht)), f"call {call}"
+        _assert_cache_equal(cj, ct, f"call {call}")
+        known_j, known_t = oj[:6], ot[:6]
+
+
+def test_dedup_eval_without_cache_and_k_columns_matches_reference():
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, 3, (20, 6)).astype(np.int32)
+    known = (np.arange(5 * K_COLS, dtype=np.int32) * 7).reshape(5, K_COLS)
+    for kw in ({}, {"known": known}):
+        oj, ej = jd.dedup_eval(_j_eval_k, jnp.asarray(rows),
+                               **{k: jnp.asarray(v) for k, v in kw.items()})
+        ot, et = td.dedup_eval(_t_eval_k, torch.as_tensor(rows),
+                               **{k: torch.as_tensor(v) for k, v in kw.items()})
+        assert_bits_equal(oj, ot, f"{sorted(kw)}")
+        assert int(ej) == int(et)

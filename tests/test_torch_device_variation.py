@@ -1,0 +1,351 @@
+"""The port's device-variation Monte-Carlo fitness against the reference
+(modelled on tests/test_device_variation.py and tests/test_device_rng.py):
+the delta table, the per-gene clip, the (P, K) fitness of the plain paths
+and of both CUDA kernels' plain versions (against the Pallas kernels in
+interpret mode), the float32 order of the robust objective, and
+``GATrainer.run`` with ``variation_mode="mean"``/``"worst"`` under every
+dedup mode and generation backend; tolerance 0."""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.core import GAConfig as JCfg, GATrainer as JTrainer, engine as jeng
+from repro.core import genome as jg, quantize as jq
+from repro.core.genome import MLPTopology as JTopo
+from repro.kernels.pop_generation import population_generation as j_gen
+from repro.kernels.pop_generation.kernel import pop_generation_kernel as j_gen_kernel
+from repro.kernels.pop_mlp import population_correct as j_correct
+from repro_torch.core import GAConfig, GATrainer, MLPTopology, engine, prng
+from repro_torch.core import genome as tg, quantize as tq
+from repro_torch.core.interop import state_from_numpy, state_to_numpy
+from repro_torch.kernels.backend import BackendPolicy
+from repro_torch.kernels.pop_generation import (pop_generation_kernel,
+                                                pop_generation_plain,
+                                                population_generation)
+from repro_torch.kernels.pop_mlp import (population_correct, pop_mlp_correct_mc,
+                                         pop_mlp_correct_mc_plain)
+from test_torch_interop import (NO_COUNTS, assert_bits_equal, assert_states_equal,
+                                jax_leaves, kernel_paths_on_cpu)
+
+TOPO = (6, 4, 2)
+RNG = np.random.default_rng(42)
+X = RNG.random((96, 6)).astype(np.float32)
+Y = (X.sum(axis=1) > 3.0).astype(np.int32)
+
+
+def _problems(sizes=TOPO, x=X, y=Y, **kw):
+    kw.setdefault("pop_size", 16)
+    jp = jeng.Problem.from_data(JTopo(sizes), x, y, JCfg(**kw), baseline_acc=0.9)
+    tp = engine.Problem.from_data(MLPTopology(sizes), x, y, GAConfig(**kw),
+                                  baseline_acc=0.9, device="cpu")
+    return jp, tp
+
+
+# -- the delta table ----------------------------------------------------------
+
+F32_EDGES = [float(np.nextafter(np.float32(v), np.float32(d)))
+             for v, d in ((0.2, 1), (0.2, 0), (0.5, 1), (1.0, 0))]
+
+
+@pytest.mark.parametrize("scale", [0.0, 1.0, 0.2, 0.5, 0.05, *F32_EDGES])
+@pytest.mark.parametrize("K,device_seed", [(8, 0), (6, 3), (1, 0)])
+def test_device_deltas_match_reference(scale, K, device_seed):
+    jp, tp = _problems((10, 3, 2), variation_mode="mean", n_device_samples=K,
+                       device_seed=device_seed, variation_scale=scale)
+    want = np.asarray(jeng.device_deltas(jp))
+    got = engine.device_deltas(tp)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (K, tp.spec.n_genes)
+    assert_bits_equal(want, got, f"scale {scale!r}")
+    assert (got[0] == 0).all()
+    assert set(np.unique(got.numpy())) <= {-1, 0, 1}
+    live = tp.spec.is_exp & tp.genes.valid.numpy()
+    assert (got.numpy()[:, ~live] == 0).all()
+    if scale == 0.0:
+        assert (got == 0).all()
+
+
+def test_device_deltas_keyed_by_device_seed_not_run_seed():
+    a = engine.device_deltas(_problems(variation_mode="mean", seed=0)[1])
+    b = engine.device_deltas(_problems(variation_mode="mean", seed=123)[1])
+    assert torch.equal(a, b)
+    c = engine.device_deltas(_problems(variation_mode="mean", device_seed=9)[1])
+    assert not torch.equal(a, c)
+    # the swept scale is a () float32 leaf, as in the reference
+    jp, tp = _problems(variation_mode="mean", variation_scale=0.25)
+    assert_bits_equal(jeng.device_deltas(jp.with_hypers(variation_scale=jnp.float32(0.7))),
+                      engine.device_deltas(tp.with_hypers(variation_scale=0.7)), "swept")
+
+
+def test_apply_device_deltas_clips_per_gene():
+    high = np.asarray([4, 8, 2], np.int32)
+    pop = np.asarray([[3, 7, 0], [0, 0, 1], [9, 9, 9]], np.int32)
+    rng = np.random.default_rng(0)
+    for deltas in ([[1, 1, -1], [-1, -1, 1], [0, 0, 0]],
+                   rng.integers(-1, 2, (3, 3))):
+        d = np.asarray(deltas, np.int32)
+        want = np.asarray(jg.apply_device_deltas(jnp.asarray(pop), jnp.asarray(d),
+                                                 jnp.asarray(high)))
+        got = tg.apply_device_deltas(torch.as_tensor(pop), torch.as_tensor(d),
+                                     torch.as_tensor(high))
+        assert_bits_equal(want, got, f"deltas {d.tolist()}")
+    # a zero delta passes even an out-of-range gene through untouched
+    got = tg.apply_device_deltas(torch.as_tensor(pop[2:]), torch.zeros(3, dtype=torch.int32),
+                                 torch.as_tensor(high))
+    assert got.tolist() == [[9, 9, 9]]
+
+
+# -- the (P, K) fitness ---------------------------------------------------------
+
+def _mc_case(sizes, P, S, K, seed):
+    """Random population, quantized inputs, labels and a device_deltas
+    table (scale 0.5) for one topology, in both packages."""
+    spec_t = tg.GenomeSpec(tg.MLPTopology(sizes))
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(spec_t.low, spec_t.high, (P, spec_t.n_genes)).astype(np.int32)
+    x01 = rng.random((S, sizes[0])).astype(np.float32)
+    y = rng.integers(0, sizes[-1], S).astype(np.int32)
+    jp, tp = _problems(sizes, x01, y, variation_mode="mean", n_device_samples=K,
+                       variation_scale=0.5, device_seed=seed)
+    dev = engine.device_deltas(tp)
+    assert_bits_equal(jeng.device_deltas(jp), dev, "deltas")
+    return jp.spec, tp.spec, pop, x01, y, dev
+
+
+@pytest.mark.parametrize("sizes,K", [((6, 4, 2), 4), ((10, 3, 2), 6), ((5, 4, 3, 2), 1)])
+def test_mc_fitness_matches_reference_ref_and_interpret(sizes, K):
+    spec_j, spec_t, pop, x01, y, dev = _mc_case(sizes, P=12, S=70, K=K, seed=len(sizes) + K)
+    xj = jq.quantize_inputs(jnp.asarray(x01), 4)
+    xt = tq.quantize_inputs(torch.as_tensor(x01), 4)
+    jargs = (jnp.asarray(pop), xj, jnp.asarray(y))
+    targs = (torch.as_tensor(pop), xt, torch.as_tensor(y))
+    jkw = dict(spec=spec_j, dev=jnp.asarray(dev.numpy()),
+               gene_high=jnp.asarray(spec_t.high), pop_tile=5, sample_tile=32)
+    want = np.asarray(j_correct(*jargs, backend="ref", **jkw))
+    assert want.shape == (12, K)
+    assert_bits_equal(want, np.asarray(j_correct(*jargs, backend="interpret", **jkw)),
+                      "reference ref vs interpret")
+    high = torch.as_tensor(spec_t.high)
+    got = population_correct(*targs, spec=spec_t, backend="ref", dev=dev, gene_high=high,
+                             pop_tile=5, sample_tile=32)
+    assert_bits_equal(want, got, "ref")
+    assert_bits_equal(want, population_correct(*targs, spec=spec_t, dev=dev,
+                                               gene_high=high), "auto")
+    # column 0 is the nominal count
+    assert torch.equal(got[:, 0], population_correct(*targs, spec=spec_t))
+
+
+def test_mc_kernel_plain_version_matches_interpret_kernel():
+    """K4's plain version (what its wrapper runs on a CPU tensor) against
+    the reference Pallas kernel in interpret mode, with a partial row
+    bound, a sample bound over −1-labelled padding and an output-column
+    mask. Rows past the bound are 0 in every column in the port."""
+    sizes, K = (6, 4, 3), 6
+    spec_j, spec_t, pop, x01, y, dev = _mc_case(sizes, P=16, S=200, K=K, seed=5)
+    n_samp = 150
+    y[n_samp:] = -1
+    om = np.array([1, 1, 0], np.int32)
+    xj = jq.quantize_inputs(jnp.asarray(x01), 4)
+    xt = tq.quantize_inputs(torch.as_tensor(x01), 4)
+    for rows in (16, 11, 0):
+        ref = np.asarray(j_correct(
+            jnp.asarray(pop), xj, jnp.asarray(y), spec=spec_j, backend="interpret",
+            n_valid_rows=jnp.int32(rows), n_valid_samples=jnp.int32(n_samp),
+            out_mask=jnp.asarray(om), dev=jnp.asarray(dev.numpy()),
+            gene_high=jnp.asarray(spec_t.high)))
+        kw = dict(spec=spec_t, n_valid_rows=torch.tensor(rows, dtype=torch.int32),
+                  n_valid_samples=torch.tensor(n_samp, dtype=torch.int32),
+                  out_mask=torch.as_tensor(om))
+        args = (torch.as_tensor(pop), xt, torch.as_tensor(y))
+        high = torch.as_tensor(spec_t.high)
+        port = pop_mlp_correct_mc(*args, dev, high, **kw)          # CPU → plain
+        assert torch.equal(port, pop_mlp_correct_mc_plain(*args, dev=dev, gene_high=high,
+                                                          **kw))
+        assert_bits_equal(ref[:rows], port[:rows], f"rows {rows}")
+        assert (port[rows:] == 0).all()
+
+
+def test_mc_fitness_requires_gene_high_and_rejects_jnp():
+    spec = tg.GenomeSpec(tg.MLPTopology(TOPO))
+    pop = tg.random_population(prng.PRNGKey(3), spec.table(), 4)
+    x = tq.quantize_inputs(torch.as_tensor(X), 4)
+    y = torch.as_tensor(Y)
+    dev = torch.zeros((2, spec.n_genes), dtype=torch.int32)
+    with pytest.raises(ValueError, match="gene_high"):
+        population_correct(pop, x, y, spec=spec, backend="ref", dev=dev)
+    with pytest.raises(ValueError, match="jnp"):
+        population_correct(pop, x, y, spec=spec, backend="jnp", dev=dev,
+                           gene_high=torch.as_tensor(spec.high))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        population_correct(pop, x, y, spec=spec, backend="kernel", dev=dev,
+                           gene_high=torch.as_tensor(spec.high))
+
+
+@pytest.mark.parametrize("K", [1, 6])
+def test_generation_kernel_n_dev_plain_matches_interpret_kernel(K):
+    """K3's n_dev branch on its plain path against the reference
+    megakernel in interpret mode with the same deltas: the children equal
+    the nominal branch's, the counts are (P, K)."""
+    sizes = (6, 4, 3)
+    spec_j, spec_t, pop, x01, y, dev = _mc_case(sizes, P=20, S=150, K=K, seed=11)
+    P = 10
+    t = spec_t.table()
+    rng = np.random.default_rng(K)
+    do = rng.random(P) < 0.7
+    key = prng.PRNGKey(21)
+    keys = tg._slot_keys(key, (0, 1, 2))
+    pm = 0.3
+    xj = jq.quantize_inputs(jnp.asarray(x01), 4)
+    xt = tq.quantize_inputs(torch.as_tensor(x01), 4)
+    tj = spec_j.table()
+    ch_j, cnt_j = j_gen_kernel(
+        jnp.asarray(pop[:P]), jnp.asarray(pop[P:]), jnp.asarray(do), tj.low, tj.high,
+        tj.is_mask, tj.mask_bits, tj.ids, jnp.asarray(keys.numpy().astype(np.uint32)),
+        jnp.float32(pm), xj, jnp.asarray(y), spec=spec_j, interpret=True,
+        dev=jnp.asarray(dev.numpy()))
+    args = (torch.as_tensor(pop[:P]), torch.as_tensor(pop[P:]), torch.as_tensor(do),
+            t.low, t.high, t.is_mask, t.mask_bits, t.ids, keys,
+            torch.tensor(pm, dtype=torch.float32), xt, torch.as_tensor(y))
+    ch_t, cnt_t = pop_generation_kernel(*args, spec=spec_t, dev=dev)   # CPU → plain
+    assert tuple(cnt_t.shape) == (P, K)
+    assert_bits_equal(ch_j, ch_t, "children")
+    assert_bits_equal(cnt_j, cnt_t, "counts")
+    ch_n, cnt_n = pop_generation_plain(*args, spec=spec_t)
+    assert torch.equal(ch_n, ch_t) and torch.equal(cnt_n, cnt_t[:, 0])
+
+
+# -- the float32 order of the robust objective ---------------------------------
+
+@pytest.mark.parametrize("mode", ["mean", "worst"])
+@pytest.mark.parametrize("K", [1, 2, 4, 6, 8, 12])
+def test_robust_objectives_match_the_jitted_reference(mode, K):
+    """Many random (N, K) counts (with low accuracies, where a float64
+    difference would round before float32 does) through the reference's
+    jitted ``objectives`` and the port's, bit for bit."""
+    rng = np.random.default_rng(K)
+    S = 7696
+    x01 = rng.random((S, 10)).astype(np.float32)
+    y = rng.integers(0, 2, S).astype(np.int32)
+    jp, tp = _problems((10, 3, 2), x01, y, variation_mode=mode, n_device_samples=K,
+                       max_acc_loss=0.05)
+    N = 4096
+    counts = rng.integers(0, S + 1, (N, K)).astype(np.int32)
+    counts[: N // 4] = rng.integers(0, S // 40, (N // 4, K))
+    pop = rng.integers(tp.spec.low, tp.spec.high, (N, tp.spec.n_genes)).astype(np.int32)
+    f = jax.jit(lambda p, g, c: jeng.objectives(p, g, jeng.counts_accuracy(p, c)))
+    jo, jv = f(jp, jnp.asarray(pop), jnp.asarray(counts))
+    to, tv = engine.objectives(tp, torch.as_tensor(pop),
+                               engine.counts_accuracy(tp, torch.as_tensor(counts)))
+    assert tuple(to.shape) == (N, 3)
+    assert_bits_equal(jo, to, f"{mode} K={K} obj")
+    assert_bits_equal(jv, tv, f"{mode} K={K} viol")
+
+
+# -- one generation across the packages ------------------------------------------
+
+_j_init = jax.jit(jeng.init_state)
+_j_gen = jax.jit(j_gen, static_argnames="backend")
+
+
+@pytest.mark.parametrize("mode", ["mean", "worst"])
+def test_one_mc_generation_from_the_reference_state(bc_dataset, mode, monkeypatch):
+    """A reference MC state ((P, K) counts, (cap, K) cache values) carried
+    into the port drives each generation backend to the reference's next
+    state, and the port's init equals the reference's."""
+    kernel_paths_on_cpu(monkeypatch)
+    ds = bc_dataset
+    jp, tp = _problems(ds.topology, ds.x_train, ds.y_train, variation_mode=mode,
+                       n_device_samples=6, variation_scale=0.4, seed=4)
+    j0, jn = _j_init(jp, jax.random.PRNGKey(3))
+    t0, tn = engine.init_state(tp, prng.PRNGKey(3))
+    assert tuple(t0.counts.shape) == (16, 6) and tuple(t0.cache.vals.shape[1:]) == (6,)
+    assert_states_equal(j0, t0, msg="init")
+    assert int(jn) == int(tn)
+    carried = state_from_numpy(jax_leaves(j0), device="cpu")
+    assert_states_equal(j0, carried, msg="carried")
+    for backend, jb in (("ref", "ref"), ("phases", "phases"), ("kernel", "interpret")):
+        j1, jaux = _j_gen(jp, j0, backend=jb)
+        t1, taux = population_generation(tp, carried, backend=backend)
+        assert_states_equal(j1, t1, msg=f"{mode}/{backend}")
+        for k, (a, b) in enumerate(zip(jaux, taux)):
+            assert_bits_equal(a, b, f"{backend} aux[{k}]")
+
+
+# -- whole runs --------------------------------------------------------------------
+
+BACKENDS = {"kernel": "interpret", "ref": "ref", "phases": "phases"}
+DEDUPS = (False, "legacy", True)
+# mean at a K whose reciprocal rounds; worst at the default K = 8, scale 0.2
+MODES = {"mean": dict(n_device_samples=6, variation_scale=0.4),
+         "worst": dict()}
+RUN = dict(pop_size=16, generations=3, seed=2)
+
+
+def _run_kw(mode, dedup):
+    return dict(RUN, dedup=dedup, variation_mode=mode, **MODES[mode])
+
+
+@pytest.mark.parametrize("dedup", DEDUPS)
+@pytest.mark.parametrize("backend", sorted(BACKENDS))
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_trainer_mc_run_matches_reference(bc_dataset, mode, backend, dedup, monkeypatch):
+    kernel_paths_on_cpu(monkeypatch)
+    ds = bc_dataset
+    interp = BACKENDS[backend] == "interpret"
+    jcfg = JCfg(**_run_kw(mode, dedup), fitness_backend="interpret" if interp else "ref",
+                variation_backend="interpret" if interp else "ref",
+                generation_backend=BACKENDS[backend])
+    jt = JTrainer(JTopo(ds.topology), ds.x_train, ds.y_train, jcfg)
+    js, _ = jt.run()
+    tcfg = GAConfig(**_run_kw(mode, dedup), backends=BackendPolicy(generation=backend))
+    tt = GATrainer(MLPTopology(ds.topology), ds.x_train, ds.y_train, tcfg, device="cpu")
+    ts, history = tt.run(verbose=True)
+    assert [h["gen"] for h in history] == [0, RUN["generations"] - 1]
+    K = tcfg.n_device_samples
+    assert tuple(ts.obj.shape) == (16, 3) and tuple(ts.counts.shape) == (16, K)
+    assert_states_equal(js, ts, msg=f"{mode}/{backend}/{dedup}")
+    assert (tt.unique_evals, tt.cache_hits) == (jt.unique_evals, jt.cache_hits)
+    jf, tf = jt.front(js), tt.front(ts)
+    assert tf["objectives"].shape[1] == 3
+    for k in ("objectives", "indices", "genomes"):
+        assert_bits_equal(jf[k], tf[k], f"front {k}")
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_mc_dedup_modes_agree(bc_dataset, mode):
+    """Dedup off / legacy / cache give identical MC states (counts are zero
+    with dedup off by design)."""
+    ds = bc_dataset
+    runs = {}
+    for d in DEDUPS:
+        tr = GATrainer(MLPTopology(ds.topology), ds.x_train, ds.y_train,
+                       GAConfig(**_run_kw(mode, d)), device="cpu")
+        runs[d] = state_to_numpy(tr.run()[0])
+    for name in NO_COUNTS:
+        assert_bits_equal(runs[False][name], runs["legacy"][name], f"off/legacy {name}")
+        assert_bits_equal(runs["legacy"][name], runs[True][name], f"legacy/cache {name}")
+    assert_bits_equal(runs["legacy"]["counts"], runs[True]["counts"], "counts")
+    assert (runs[False]["counts"] == 0).all()
+
+
+def test_variation_off_is_two_objective():
+    tr = GATrainer(MLPTopology(TOPO), X, Y, GAConfig(pop_size=16, generations=2),
+                   baseline_acc=0.9, device="cpu")
+    st, _ = tr.run()
+    assert tuple(st.obj.shape) == (16, 2) and tuple(st.counts.shape) == (16,)
+    assert tuple(st.cache.vals.shape) == (4096,)
+
+
+def test_gaconfig_variation_validation():
+    with pytest.raises(ValueError, match="variation_mode"):
+        GAConfig(variation_mode="avg")
+    with pytest.raises(ValueError, match="n_device_samples"):
+        GAConfig(variation_mode="mean", n_device_samples=0)
+    with pytest.raises(ValueError, match="variation_scale"):
+        GAConfig(variation_mode="mean", variation_scale=1.5)
+    with pytest.raises(ValueError, match="variation_scale"):
+        GAConfig(variation_scale=-0.1)
+    with pytest.raises(ValueError, match="jnp"):
+        GAConfig(variation_mode="mean", backends=BackendPolicy(fitness="jnp"))
+    GAConfig(variation_mode="worst", n_device_samples=1, variation_scale=1.0)

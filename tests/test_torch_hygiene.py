@@ -5,7 +5,8 @@
 * entry points default to the card and raise without one unless the CPU
   is asked for; a "kernel" backend on a CPU tensor raises;
 * config fields whose path is not ported raise ``NotImplementedError``,
-  and the backend names are the reference's minus "interpret".
+  and the backend names are the reference's minus "interpret";
+  device-variation fitness is ported and needs a count-based backend.
 """
 import ast
 from pathlib import Path
@@ -62,7 +63,8 @@ def test_kernel_backend_on_cpu_tensors_raises(bc_dataset, path):
         tr.run()
 
 
-@pytest.mark.parametrize("which", ["pop_mlp", "pop_variation", "pop_generation"])
+@pytest.mark.parametrize("which", ["pop_mlp", "pop_variation", "pop_generation",
+                                   "pop_mlp_mc", "pop_generation_mc"])
 def test_kernel_launches_refuse_cpu_tensors(which):
     """Only a wrapper maps a CPU tensor to its plain version; the prepared
     launch under it takes CUDA tensors or raises."""
@@ -79,17 +81,28 @@ def test_kernel_launches_refuse_cpu_tensors(which):
            t.mask_bits, t.ids, torch.zeros((3, 2), dtype=torch.int64), torch.tensor(0.1))
     call = {"pop_mlp": lambda: pop_mlp_correct_call(pop, x, y, spec=spec),
             "pop_variation": lambda: pop_variation_call(*var),
-            "pop_generation": lambda: pop_generation_call(*var, x, y, spec=spec)}[which]
+            "pop_generation": lambda: pop_generation_call(*var, x, y, spec=spec),
+            "pop_mlp_mc": lambda: pop_mlp_correct_call(pop, x, y, spec=spec, dev=pop[:2],
+                                                       gene_high=t.high),
+            "pop_generation_mc": lambda: pop_generation_call(*var, x, y, spec=spec,
+                                                             dev=pop[:2])}[which]
     with pytest.raises(ValueError, match="CUDA"):
         call()
 
 
-@pytest.mark.parametrize("kw,item", [(dict(variation_mode="mean"), "A10"),
-                                     (dict(generations_budget=5), "A12"),
-                                     (dict(batch_axis="runs"), "A11")])
+@pytest.mark.parametrize("kw,item", [(dict(generations_budget=5), "A12"),
+                                     (dict(batch_axis="runs"), "A11")],
+                         ids=["kw1-A12", "kw2-A11"])
 def test_unported_config_paths_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         GAConfig(**kw)
+
+
+def test_variation_mode_builds_and_rejects_the_jnp_oracle():
+    for mode in ("mean", "worst"):
+        assert GAConfig(variation_mode=mode).variation_mode == mode
+    with pytest.raises(ValueError, match="jnp"):
+        GAConfig(variation_mode="worst", backends=BackendPolicy(fitness="jnp"))
 
 
 def test_config_keeps_every_reference_field_and_backend_names():
