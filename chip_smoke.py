@@ -23,13 +23,28 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    On each path the three final states must be bit-identical and every
    kernel of the path must launch; small breast_cancer runs (off, worst,
    mean) on the card must equal the plain runs on the CPU;
-5. numbers — per kernel: the device time of its launch alone, operands
+5. LM-side ops, the third path, with the launch counts set to 0 just
+   before it and read just after — ``state_scan`` at mamba2-130m width,
+   ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
+   packed on the card by ``pack_weights``) and ``causal_attention`` at
+   qwen3-14b prefill (bf16), each through its op with ``use_kernel=None``;
+   each must launch its kernel and agree with its plain version: the state
+   scan bit for bit, the pow2 product within 1e-4 of the plain output's
+   largest magnitude, attention within 2e-2 (bf16); then float32 cases
+   of the attention (3e-4) and the pow2 product (1e-4);
+6. numbers — per kernel: the device time of its launch alone, operands
    prepared once (50 launches captured in a CUDA graph, replayed between
    CUDA events), the same for the whole wrapper, the time of a wrapper
    call from the host and of the plain version (CUDA events around the
    calls), the bound (the operations over the busiest SM pipe or the
    issue rate, or the bytes over 3.35 TB/s, whichever is larger),
-   launches; and a whole generation.
+   launches; and a whole generation. The LM-side kernels the same way
+   (fewer launches per graph for those that run for milliseconds), their
+   bound the larger of the bytes over 3.35 TB/s, the products over the
+   bf16 tensor cores (989 TFLOP/s) or the float32 pipe (67 TFLOP/s) and
+   the exponentials over the special-function units, with the time of one
+   PyTorch call computing the same function beside them where there is
+   one (never called by the port).
 
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -47,6 +62,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+TENSOR_BF16_FLOPS = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+FP32_FLOPS = 67e12              # H100 SXM data sheet, float32 outside the tensor cores
+# exponentials per SM and clock on the special-function units (CUDA C++
+# Programming Guide, compute capability 9.0: base-2 exponential 16)
+SFU_RATE = 16
+# LM-side ops at the full width of configurations the repo ships
+# (src/repro/configs/registry.py)
+SSD_SHAPE = (8, 8, 24, 64, 128)   # mamba2-130m: batch 8 x 2048 tokens in chunks of 256,
+#                                   H = 768 * 2 / 64 heads, headdim 64, d_state 128
+ATTN_SHAPE = (40, 4096, 128, 128)  # qwen3-14b prefill: 40 query heads, S, D = Dv = 128
+FFN_SHAPE = (4096, 5120, 17408)    # qwen3-14b FFN: M tokens, K = d_model, N = d_ff
+FFN_F32_M = 512
+LM_KERNELS = ("ssd_state_scan", "pow2_matmul", "flash_attention")
 GENERATIONS = 20
 K_DEV = 8                       # GAConfig.n_device_samples default
 FIELDS = ("pop", "obj", "viol", "rank", "crowd", "counts", "key", "gen")
@@ -224,6 +252,201 @@ def require_equal(name: str, got, want) -> int:
     return 0
 
 
+def require_within(name: str, got, want, limit):
+    """|got - want| <= limit everywhere (in float32; ``limit`` a number or a
+    tensor of got's shape); returns |got - want|."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: kernel gives {tuple(got.shape)} {got.dtype}, plain "
+                             f"version {tuple(want.shape)} {want.dtype}")
+    g = got.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: kernel output not finite")
+    diff = (g - want.float()).abs()
+    if not (diff <= limit).all():
+        worst = (diff / limit).max().item()
+        raise AssertionError(f"{name}: kernel differs from its plain version beyond its "
+                             f"limit (max abs diff {diff.max().item()}, {worst:.3g} x limit)")
+    return diff
+
+
+def require_close(name: str, got, want, atol: float, rtol: float) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere; returns max
+    |difference|."""
+    return require_within(name, got, want, atol + rtol * want.float().abs()).max().item()
+
+
+def lm_path(dev) -> dict:
+    """Phase 5: the LM-side ops at full width through their public entry
+    points, counted; each output held against its plain version."""
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention import (causal_attention, flash_attention,
+                                                     flash_attention_bf16_limit,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.pow2_matmul import (pack_weights, pow2_linear, pow2_matmul,
+                                                 pow2_matmul_plain)
+    from repro_torch.kernels.ssd_scan import ssd_state_scan_plain, state_scan
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    state_c = torch.randn(SSD_SHAPE, generator=g, device=dev)
+    decay = torch.rand(SSD_SHAPE[:3], generator=g, device=dev)   # exp(-dt A) lies in (0, 1)
+    BH, S, D, Dv = ATTN_SHAPE
+    q, k, v = (torch.randn((BH, S, d), generator=g, device=dev).to(torch.bfloat16)
+               for d in (D, D, Dv))
+    M, K, N = FFN_SHAPE
+    x = torch.randn((1, M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((K, N), generator=g, device=dev) * 0.02
+    wp = pack_weights(w)
+    require_equal("pack_weights card vs CPU (first 64 rows)", wp[:64].cpu(),
+                  pack_weights(w[:64].cpu()))
+    del w
+    torch.cuda.synchronize()
+
+    _cuda.reset_launches()
+    h_prev = state_scan(state_c, decay)
+    y = pow2_linear(x, wp)
+    o = causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    launches = {n: _cuda.LAUNCHES[n] for n in LM_KERNELS}
+    missing = [n for n in LM_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"LM ops: kernels never launched through their ops: {missing}")
+
+    err = {}
+    want = ssd_state_scan_plain(state_c, decay)
+    err["ssd_state_scan"] = require_equal("ssd_state_scan vs plain",
+                                          h_prev.view(torch.int32), want.view(torch.int32))
+    if (h_prev[:, 0] != 0).any() or not torch.isfinite(h_prev).all():
+        raise AssertionError("ssd_state_scan: chunk 0 not zero or output not finite")
+    del want
+    want = pow2_matmul_plain(x[0], wp)
+    scale = want.abs().max().item()
+    err["pow2_matmul"] = require_close("pow2_linear bf16 vs plain", y[0], want,
+                                       1e-4 * scale, 0.0)
+    del want, y
+    # bf16: one bf16 unit of the output plus the spread of p's bf16 rounding
+    # (flash_attention_bf16_limit), a limit that shrinks with the late rows'
+    # small outputs
+    want = flash_attention_plain(q, k, v)
+    limit = flash_attention_bf16_limit(q, k, v, want)
+    diff = require_within("causal_attention bf16 vs plain", o, want, limit)
+    err["flash_attention"] = diff.max().item()
+    late = slice(S - S // 4, S)
+    fa_bf16 = dict(ratio=(diff / limit).max().item(), late_err=diff[:, late].max().item(),
+                   late_limit=limit[:, late].median().item(),
+                   late_out=want[:, late].float().abs().median().item())
+    del o, want, limit, diff
+    torch.cuda.empty_cache()
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    err_fa32 = require_close("flash_attention float32 vs plain", flash_attention(q32, k32, v32),
+                             flash_attention_plain(q32, k32, v32), 3e-4, 3e-4)
+    x32 = torch.randn((FFN_F32_M, K), generator=g, device=dev)
+    want = pow2_matmul_plain(x32, wp)
+    err_mm32 = require_close("pow2_matmul float32 vs plain", pow2_matmul(x32, wp), want,
+                             1e-4 * want.abs().max().item(), 0.0)
+    torch.cuda.empty_cache()
+    print(f"[lm] state_scan {SSD_SHAPE} f32 (mamba2-130m), pow2_linear x {tuple(x.shape)} bf16 "
+          f"x w {tuple(wp.shape)} uint8 (qwen3-14b FFN), causal_attention {ATTN_SHAPE} bf16 "
+          f"(qwen3-14b prefill) through their ops: launches {launches}; vs plain: state scan "
+          f"bit for bit, pow2 max abs diff {err['pow2_matmul']:.3g} (limit 1e-4 x "
+          f"{scale:.4g}), attention bf16 {err['flash_attention']:.3g} ({fa_bf16['ratio']:.3g} x "
+          f"the bf16 limit at worst; last quarter of the rows: max abs diff "
+          f"{fa_bf16['late_err']:.3g}, median limit {fa_bf16['late_limit']:.3g}, median "
+          f"|plain| {fa_bf16['late_out']:.3g}), float32 cases: attention {err_fa32:.3g} (3e-4), pow2 M={FFN_F32_M} "
+          f"{err_mm32:.3g} (1e-4 x max)")
+    return dict(state_c=state_c, decay=decay, q=q, k=k, v=v, q32=q32, k32=k32, v32=v32,
+                x=x[0], x32=x32, wp=wp, launches=launches, err=err)
+
+
+def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
+    """Phase 6 for the LM-side kernels: the ``kernels`` rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quantize import pow2_dequantize
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_call,
+                                                            flash_attention_plain)
+    from repro_torch.kernels.pow2_matmul.kernel import pow2_matmul_call, pow2_matmul_plain
+    from repro_torch.kernels.ssd_scan.kernel import ssd_state_scan_call, ssd_state_scan_plain
+
+    def tc_bound(flops, peak, nbytes, exps=0):
+        terms = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / peak,
+                 "exponentials": exps / (SFU_RATE * n_sm * clock_hz)}
+        by = max(terms, key=terms.get)
+        return terms[by] * 1e3, "bytes" if by == "bytes" else "operations", by
+
+    b, nc, H, P, N = SSD_SHAPE
+    BH, S, D, Dv = ATTN_SHAPE
+    M, K, Nf = FFN_SHAPE
+    pairs = S * (S + 1) // 2        # causal (query, key) pairs of one head
+    wp, x, x32 = lm["wp"], lm["x"], lm["x32"]
+    q, k, v = lm["q"], lm["k"], lm["v"]
+    q32, k32, v32 = lm["q32"], lm["k32"], lm["v32"]
+    n_scan = b * nc * H * P * N
+    scan_bound = bound(ops_add((n_scan, {"fp32": 2})), 4 * (2 * n_scan + b * nc * H), n_sm,
+                       clock_hz)
+    w_bf16 = pow2_dequantize(wp, torch.bfloat16)
+    cases = {
+        "ssd_state_scan": dict(
+            shape=f"{SSD_SHAPE} float32 (mamba2-130m, batch 8 x 2048 tokens)",
+            source="src/repro_torch/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan/kernel.py:32",
+            launch=ssd_state_scan_call(lm["state_c"], lm["decay"])[0], reps=50, replays=5,
+            plain=lambda: ssd_state_scan_plain(lm["state_c"], lm["decay"]),
+            library=None, bound=scan_bound),
+        "pow2_matmul": dict(
+            shape=f"x ({M}, {K}) bf16 x w ({K}, {Nf}) uint8 (qwen3-14b FFN)",
+            source="src/repro_torch/csrc/pow2_matmul.cu",
+            replaces="src/repro/kernels/pow2_matmul/kernel.py:54",
+            launch=pow2_matmul_call(x, wp)[0], reps=3, replays=2,
+            plain=lambda: pow2_matmul_plain(x, wp),
+            library=lambda: torch.matmul(x, w_bf16),
+            bound=tc_bound(2 * M * K * Nf, TENSOR_BF16_FLOPS, 2 * M * K + K * Nf + 4 * M * Nf)),
+        "pow2_matmul float32": dict(
+            shape=f"x ({FFN_F32_M}, {K}) float32 x w ({K}, {Nf}) uint8",
+            launch=pow2_matmul_call(x32, wp)[0], reps=3, replays=2,
+            plain=lambda: pow2_matmul_plain(x32, wp), library=None,
+            bound=tc_bound(2 * FFN_F32_M * K * Nf, FP32_FLOPS,
+                           4 * FFN_F32_M * K + K * Nf + 4 * FFN_F32_M * Nf)),
+        "flash_attention": dict(
+            shape=f"{ATTN_SHAPE} bf16 (qwen3-14b prefill)",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:66",
+            launch=flash_attention_call(q, k, v)[0], reps=3, replays=2,
+            plain=lambda: flash_attention_plain(q, k, v),
+            library=lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                           is_causal=True),
+            bound=tc_bound(2 * BH * pairs * (D + Dv), TENSOR_BF16_FLOPS,
+                           2 * BH * S * (2 * D + 2 * Dv), BH * pairs)),
+        "flash_attention float32": dict(
+            shape=f"{ATTN_SHAPE} float32",
+            launch=flash_attention_call(q32, k32, v32)[0], reps=3, replays=2,
+            plain=lambda: flash_attention_plain(q32, k32, v32), library=None,
+            bound=tc_bound(2 * BH * pairs * (D + Dv), FP32_FLOPS,
+                           4 * BH * S * (2 * D + 2 * Dv), BH * pairs)),
+    }
+    rows = []
+    for name, c in cases.items():
+        ms = device_ms(c["launch"], reps=c["reps"], replays=c["replays"])
+        plain_ms = time_ms(c["plain"], reps=3, warmup=1)
+        lib_ms = time_ms(c["library"], reps=10) if c["library"] else None
+        bound_ms, bound_by, term = c["bound"]
+        kernel = name.split()[0]
+        print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device; plain "
+              f"{plain_ms:.3f} ms; library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({term}), {bound_ms / ms:.1%} of bound; "
+              f"{lm['launches'][kernel]} launch(es) through its op on the LM path; {smi}")
+        torch.cuda.empty_cache()
+        if "source" in c:
+            rows.append({"name": name, "route": "cuda", "source": c["source"],
+                         "replaces": c["replaces"], "launches": lm["launches"][name],
+                         "max_abs_err": lm["err"][name], "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -252,6 +475,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    # full float32 products in the plain versions (TF32 would change them)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. device ---------------------------------------------------------
     smi = nvidia_smi("name,power.limit")
@@ -428,7 +654,10 @@ def main() -> int:
         print(f"[e2e] breast_cancer pop 32 gens 3 variation_mode={mode}: card (kernels) == "
               f"CPU (plain paths), bit for bit")
 
-    # -- 5. numbers ------------------------------------------------------------
+    # -- 5. LM-side ops --------------------------------------------------------
+    lm = lm_path(dev)
+
+    # -- 6. numbers ------------------------------------------------------------
     sh = shapes["pendigits"]
     spec, x, y, pop, args = sh["spec"], sh["x"], sh["y"], sh["pop"], sh["args"]
     P, G = pop.shape
@@ -542,6 +771,7 @@ def main() -> int:
             print(f"[numbers] variation_mode={mode} generation={backend} pendigits pop {P}: "
                   f"{gen_ms:.2f} ms per generation; rank_select_rerank alone (sweep, Python "
                   f"loop, pool {2 * P}, {pool_obj.shape[1]} objectives) {rank_ms:.2f} ms; {smi}")
+    rows += lm_numbers(lm, n_sm, clock_hz, smi)
     # restore: the timing launches above are not main-path launches
     for k in before:
         _cuda.LAUNCHES[k] = before[k]

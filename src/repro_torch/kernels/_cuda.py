@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("pop_mlp", "pop_variation", "pop_generation")
+SOURCES = ("pop_mlp", "pop_variation", "pop_generation", "ssd_scan", "pow2_matmul",
+           "flash_attention")
 LIBRARY = "libreprotorch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -34,11 +35,13 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC
 
 LAUNCHES = dict.fromkeys(("pop_mlp_correct", "pop_variation_kernel",
                           "pop_generation_kernel", "pop_mlp_correct_mc",
-                          "pop_generation_kernel_mc"), 0)
+                          "pop_generation_kernel_mc", "ssd_state_scan", "pow2_matmul",
+                          "flash_attention"), 0)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer (device buffers, host descriptor, stream) is a
-# c_void_p, every size a c_int; each launcher returns the cudaError_t code.
+# c_void_p, every size or flag a c_int, a float scale a c_float; each
+# launcher returns the cudaError_t code.
 _SIGNATURES = {
     "pop_mlp_correct_launch": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
     "pop_variation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
@@ -48,6 +51,9 @@ _SIGNATURES = {
                                   _P, _P),
     "pop_generation_mc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                  _I, _I, _P, _P, _P, _I, _P, _P, _P, _P),
+    "ssd_state_scan_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
+    "pow2_matmul_launch": (_P, _I, _P, _I, _I, _I, _P, _P),
+    "flash_attention_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -74,3 +74,17 @@ def pick(path: str, name: str | None, device: torch.device) -> str:
         raise RuntimeError(f"{path} backend 'kernel' runs a CUDA kernel and "
                            f"needs CUDA tensors, got {device}")
     return name
+
+
+def use_kernel_on(use_kernel: bool | None, device, op: str) -> bool:
+    """Whether an LM-side op (``state_scan``, ``causal_attention``,
+    ``pow2_linear``) launches its CUDA kernel: ``None`` picks the kernel for
+    a CUDA tensor and the plain version elsewhere; ``True`` off the card
+    raises; ``False`` runs the plain version on either device."""
+    on_card = torch.device(device).type == "cuda"
+    if use_kernel is None:
+        return on_card
+    if use_kernel and not on_card:
+        raise RuntimeError(f"{op}: use_kernel=True runs a CUDA kernel and needs "
+                           f"CUDA tensors, got {device}")
+    return bool(use_kernel)

@@ -1,6 +1,9 @@
 """Each CUDA kernel against its plain version on the card (marker
 ``cuda``): pendigits-like shapes, row/sample bounds, device-variation
-delta tables with K = 1 and 6, exact equality. The
+delta tables with K = 1 and 6, exact equality; the LM-side kernels at
+small and ragged shapes (the state scan bit for bit, the pow2 product
+within 1e-4 of the plain output's largest magnitude, attention within
+3e-4 in float32 and ``flash_attention_bf16_limit`` in bfloat16). The
 tests skip, with a reason, where ``torch.cuda.is_available()`` is False;
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's
 full shapes. Run them on a card with
@@ -18,6 +21,12 @@ from repro_torch.kernels.pop_generation import pop_generation_kernel, pop_genera
 from repro_torch.kernels.pop_mlp import (pop_mlp_correct, pop_mlp_correct_mc,
                                          pop_mlp_correct_mc_plain, pop_mlp_correct_plain)
 from repro_torch.kernels.pop_variation import pop_variation_kernel, pop_variation_plain
+from repro_torch.kernels.flash_attention import (causal_attention, flash_attention,
+                                                 flash_attention_bf16_limit,
+                                                 flash_attention_plain)
+from repro_torch.kernels.pow2_matmul import (pack_weights, pow2_linear, pow2_matmul,
+                                             pow2_matmul_plain)
+from repro_torch.kernels.ssd_scan import ssd_state_scan, ssd_state_scan_plain, state_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +135,84 @@ def test_wrappers_reject_bad_inputs(card):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, 2, card)[:, :5], high, spec=spec)
     with pytest.raises(ValueError, match="shared memory"):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, 200, card), high, spec=spec)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1, 1, 1), (2, 3, 5, 7, 9), (2, 9, 24, 64, 128)])
+def test_ssd_scan_kernel_equals_plain(card, shape):
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    sc = torch.randn(shape, generator=g, device=card)
+    dec = torch.rand(shape[:3], generator=g, device=card)
+    before = _cuda.LAUNCHES["ssd_state_scan"]
+    got = state_scan(sc, dec)
+    assert _cuda.LAUNCHES["ssd_state_scan"] == before + 1
+    want = ssd_state_scan_plain(sc, dec)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (77, 100, 130), (1, 5, 3), (256, 384, 512)])
+def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N):
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(dtype)
+    wp = pack_weights(torch.randn((K, N), generator=g, device=card) * 0.1)
+    before = _cuda.LAUNCHES["pow2_matmul"]
+    got = pow2_linear(x[None], wp)[0]
+    assert _cuda.LAUNCHES["pow2_matmul"] == before + 1
+    want = pow2_matmul_plain(x, wp)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    zero = pack_weights(torch.zeros((K, N), device=card))
+    assert pow2_matmul(x, zero).abs().max() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,S,D,Dv", [(2, 100, 32, 16), (3, 130, 64, 128), (1, 1, 8, 8),
+                                       (2, 257, 128, 128), (4, 128, 16, 48),
+                                       (2, 2048, 128, 128)])
+def test_flash_attention_kernel_equals_plain(card, dtype, BH, S, D, Dv):
+    g = torch.Generator(device=card).manual_seed(BH * S + D)
+    q, k, v = (torch.randn((BH, S, d), generator=g, device=card).to(dtype) for d in (D, D, Dv))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = causal_attention(q, k, v, block_q=S, block_k=S)
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v)
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+    else:
+        limit = flash_attention_bf16_limit(q, k, v, want)
+        assert ((got.float() - want.float()).abs() <= limit).all()
+
+
+def test_lm_wrappers_reject_bad_inputs(card):
+    sc, dec = torch.zeros((1, 2, 4, 4, 4), device=card), torch.ones((1, 2, 4), device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_state_scan(sc.double(), dec)
+    with pytest.raises(ValueError, match="shape"):
+        ssd_state_scan(sc, dec[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_state_scan(sc.transpose(3, 4).contiguous().transpose(3, 4), dec)
+    with pytest.raises(ValueError, match="on cpu"):
+        ssd_state_scan(sc, dec.cpu())
+    x, wp = torch.zeros((4, 8), device=card), torch.zeros((8, 4), dtype=torch.uint8, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        pow2_matmul(x.half(), wp)
+    with pytest.raises(TypeError, match="dtype"):
+        pow2_matmul(x, wp.to(torch.int8))
+    with pytest.raises(ValueError, match="contiguous"):
+        pow2_matmul(x, wp.t().contiguous().t())
+    with pytest.raises(ValueError, match="on cpu"):
+        pow2_matmul(x, wp.cpu())
+    q = torch.zeros((2, 16, 8), device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(q, q[:, :, :4], q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(ValueError, match="D, Dv"):
+        wide = torch.zeros((1, 16, 160), device=card)
+        flash_attention(wide, wide, q[:1])

@@ -3,7 +3,8 @@
 * no module of ``src/repro_torch`` and not ``chip_smoke.py`` imports
   ``jax`` or the JAX package ``repro``;
 * entry points default to the card and raise without one unless the CPU
-  is asked for; a "kernel" backend on a CPU tensor raises;
+  is asked for; a "kernel" backend on a CPU tensor raises, and so does
+  ``use_kernel=True`` in the LM-side ops;
 * config fields whose path is not ported raise ``NotImplementedError``,
   and the backend names are the reference's minus "interpret";
   device-variation fitness is ported and needs a count-based backend.
@@ -64,13 +65,17 @@ def test_kernel_backend_on_cpu_tensors_raises(bc_dataset, path):
 
 
 @pytest.mark.parametrize("which", ["pop_mlp", "pop_variation", "pop_generation",
-                                   "pop_mlp_mc", "pop_generation_mc"])
+                                   "pop_mlp_mc", "pop_generation_mc", "ssd_scan",
+                                   "pow2_matmul", "flash_attention"])
 def test_kernel_launches_refuse_cpu_tensors(which):
     """Only a wrapper maps a CPU tensor to its plain version; the prepared
     launch under it takes CUDA tensors or raises."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_call
     from repro_torch.kernels.pop_generation.kernel import pop_generation_call
     from repro_torch.kernels.pop_mlp.kernel import pop_mlp_correct_call
     from repro_torch.kernels.pop_variation.kernel import pop_variation_call
+    from repro_torch.kernels.pow2_matmul.kernel import pow2_matmul_call
+    from repro_torch.kernels.ssd_scan.kernel import ssd_state_scan_call
 
     spec = engine.GenomeSpec(MLPTopology((4, 3, 2)))
     t = spec.table("cpu")
@@ -85,9 +90,33 @@ def test_kernel_launches_refuse_cpu_tensors(which):
             "pop_mlp_mc": lambda: pop_mlp_correct_call(pop, x, y, spec=spec, dev=pop[:2],
                                                        gene_high=t.high),
             "pop_generation_mc": lambda: pop_generation_call(*var, x, y, spec=spec,
-                                                             dev=pop[:2])}[which]
+                                                             dev=pop[:2]),
+            "ssd_scan": lambda: ssd_state_scan_call(torch.zeros((1, 2, 4, 4, 4)),
+                                                    torch.ones((1, 2, 4))),
+            "pow2_matmul": lambda: pow2_matmul_call(torch.zeros((4, 8)),
+                                                    torch.zeros((8, 4), dtype=torch.uint8)),
+            "flash_attention": lambda: flash_attention_call(*[torch.zeros((2, 16, 8))] * 3),
+            }[which]
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+@pytest.mark.parametrize("op", ["state_scan", "pow2_linear", "causal_attention"])
+def test_lm_op_with_use_kernel_on_cpu_tensors_raises(op):
+    """``use_kernel=True`` asks for the CUDA kernel: on CPU tensors it
+    raises instead of running the plain version; ``None`` and ``False``
+    run the plain version there."""
+    from repro_torch.kernels import causal_attention, pow2_linear, state_scan
+
+    args = {"state_scan": (torch.zeros((1, 2, 4, 4, 4)), torch.ones((1, 2, 4))),
+            "pow2_linear": (torch.zeros((2, 4, 8)), torch.zeros((8, 4), dtype=torch.uint8)),
+            "causal_attention": tuple([torch.zeros((2, 16, 8))] * 3)}[op]
+    fn = {"state_scan": state_scan, "pow2_linear": pow2_linear,
+          "causal_attention": causal_attention}[op]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(*args, use_kernel=True)
+    assert fn(*args, use_kernel=None).device.type == "cpu"
+    assert torch.equal(fn(*args, use_kernel=False), fn(*args))
 
 
 @pytest.mark.parametrize("kw,item", [(dict(generations_budget=5), "A12"),
