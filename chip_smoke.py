@@ -13,7 +13,8 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
    (tolerance 0: integer outputs); the device-instance kernels with an
-   all-zero delta table equal the nominal kernels;
+   all-zero delta table equal the nominal kernels; the GA kernels' lane
+   axis at the suite's 15 padded lanes, one launch for all lanes;
 4. end to end, two paths, each with the launch counts set to 0 just
    before it and read just after — ``GATrainer.run`` at pendigits width
    (16, 5, 10), pop 256, with generation backends auto (megakernel), ref
@@ -23,6 +24,21 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    On each path the three final states must be bit-identical and every
    kernel of the path must launch; small breast_cancer runs (off, worst,
    mean) on the card must equal the plain runs on the CPU;
+4b. the batched entry points, each a path of its own with the launch
+   counts set to 0 just before it and read just after, each launching its
+   kernels once per generation for all lanes: ``run_suite`` over the
+   paper's five datasets x 3 seeds (15 lanes, pop 64, 20 generations,
+   2 doping genomes per dataset, generation auto), ``run_grid`` at
+   pendigits pop 256 (2 seeds x 3 mutation rates, 10 generations,
+   generation ref and phases) and ``run_batch`` on the device-variation
+   path (pendigits pop 256, seeds 0 and 1, K = 8); every cell must equal
+   its sequential unpadded ``GATrainer.run`` on the card (every field, the
+   EvalCache, ``unique_evals``, ``cache_hits``); a small suite on the card
+   must equal the CPU's, and a generation-"ref" run that makes EvalCache
+   hits must equal the CPU's, cache included;
+4c. the fallback chain's probe: ``resolve_backends(..., fallback=True)``
+   must launch the probe kernel once, downgrade nothing and warn nothing,
+   then answer from its memo;
 5. LM-side ops, the third path, with the launch counts set to 0 just
    before it and read just after — ``state_scan`` at mamba2-130m width,
    ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
@@ -44,9 +60,14 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    bf16 tensor cores (989 TFLOP/s) or the float32 pipe (67 TFLOP/s) and
    the exponentials over the special-function units, with the time of one
    PyTorch call computing the same function beside them where there is
-   one (never called by the port).
+   one (never called by the port). The lane axis: each GA kernel's launch
+   for the suite's 15 lanes against the same work as 15 single-lane
+   launches (both CUDA graphs), and a batched generation of the suite with
+   its ranking's share against 15 single-lane generations; the probe.
 
-The last two lines are the ``kernels`` JSON object and
+The last three lines are the card's name and power limit, the ``kernels``
+JSON object (nine rows, the lane-axis numbers under ``lane_axis`` in the
+GA kernels' rows) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 before printing any result.
 """
@@ -57,6 +78,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -447,6 +470,418 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
     return rows
 
 
+# -- the batched paths (lanes) ----------------------------------------------------
+
+# the paper's suite (benchmarks/common.py: GA_POP 64, N_SEEDS 3), its 60
+# generations cut to 20 for time; 2 seeded random doping genomes per dataset
+SUITE_DATASETS = ("breast_cancer", "cardio", "pendigits", "redwine", "whitewine")
+SUITE_POP, SUITE_SEEDS, SUITE_GENS, SUITE_DOPE = 64, (0, 1, 2), 20, 2
+GRID_POP, GRID_SEEDS, GRID_RATES, GRID_GENS = 256, (0, 1), (0.01, 0.02, 0.05), 10
+GA_KERNELS = ("pop_mlp_correct", "pop_variation_kernel", "pop_generation_kernel",
+              "pop_mlp_correct_mc", "pop_generation_kernel_mc")
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equality of two numpy arrays (float32 through int32)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def require_state(what: str, got, want, pos=None, fields=FIELDS + CACHE):
+    """Every listed GAState field of ``got`` equals ``want``'s. ``pos``: the
+    unpadded positions of a padded cell, whose cache rows are gathered to
+    the unpadded layout (their padding columns must be zero)."""
+    from repro_torch.core.interop import state_to_numpy
+
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    if pos is not None and "cache.rows" in a:
+        rows = a["cache.rows"]
+        if np.delete(rows, pos, axis=1).any():
+            raise AssertionError(f"{what}: padding columns of the cache rows not zero")
+        a["cache.rows"] = rows[:, pos]
+    for f in fields:
+        if not same(a[f], b[f]):
+            raise AssertionError(f"{what}: GAState.{f} differs")
+
+
+def counted(run):
+    """``run()`` with every launch count set to 0 just before it; → (its
+    result, the launches it made, its wall seconds)."""
+    import torch
+    from repro_torch.kernels import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {k: v for k, v in _cuda.LAUNCHES.items() if v}, wall
+
+
+def require_launches(what: str, got: dict, want: dict):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want} (each kernel once "
+                             f"per generation for all lanes)")
+
+
+def suite_problems(dev, cfg):
+    from repro_torch.core import engine
+    from repro_torch.core.genome import GenomeSpec, MLPTopology
+    from repro_torch.data import load_dataset
+
+    rng = np.random.default_rng(1)
+    out = []
+    for name in SUITE_DATASETS:
+        ds = load_dataset(name)
+        spec = GenomeSpec(MLPTopology(ds.topology))
+        dope = rng.integers(spec.low, spec.high, (SUITE_DOPE, spec.n_genes)).astype(np.int32)
+        out.append((ds, engine.Problem.from_data(MLPTopology(ds.topology), ds.x_train,
+                                                 ds.y_train, cfg, device=dev), dope))
+    return out
+
+
+def stacked_suite(problems, seeds):
+    """The suite's lanes stacked as ``run_suite`` stacks them (one lane per
+    (dataset, seed), unswept hyperparameters)."""
+    from repro_torch.core import engine, sweep
+
+    spec = sweep.suite_spec(problems)
+    s_max = max(p.x_int.shape[0] for p in problems)
+    return engine.stack_problems([sweep.pad_lane(p, spec, s_max) for p in problems
+                                  for _ in seeds])
+
+
+def lane_kernel_checks(dev) -> dict:
+    """Phase 3 for the lane axis: each GA kernel launched once for the 15
+    lanes of the suite (padded layout, each lane its own samples, a shared
+    row bound below P) against its plain version, exactly."""
+    import torch
+    from repro_torch.core import engine, prng
+    from repro_torch.core.genome import _slot_keys, random_population
+    from repro_torch.kernels.pop_generation.kernel import (pop_generation_kernel,
+                                                           pop_generation_plain)
+    from repro_torch.kernels.pop_mlp.kernel import (pop_mlp_correct, pop_mlp_correct_mc,
+                                                    pop_mlp_correct_mc_plain,
+                                                    pop_mlp_correct_plain)
+    from repro_torch.kernels.pop_variation.kernel import (pop_variation_kernel,
+                                                          pop_variation_plain)
+
+    cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS)
+    stacked = stacked_suite([p for _, p, _ in suite_problems(dev, cfg)], SUITE_SEEDS)
+    d = engine.lane_data(stacked)
+    L, P = stacked.n_lanes, SUITE_POP
+    pop = torch.stack([random_population(prng.PRNGKey(100 + i, dev), stacked.lane(i).genes,
+                                         2 * P) for i in range(L)])
+    deltas = torch.stack([engine.device_deltas(stacked.lane(i).replace_cfg(
+        variation_mode="mean", n_device_samples=K_DEV)) for i in range(L)])
+    t = d.genes
+    keys = torch.stack([_slot_keys(prng.PRNGKey(200 + i, dev), (0, 1, 2)) for i in range(L)])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    do = torch.rand((L, P), generator=gen, device=dev) < 0.7
+    var = (pop[:, :P].contiguous(), pop[:, P:].contiguous(), do, t.low, t.high, t.is_mask,
+           t.mask_bits, t.ids, keys, d.mutation_rate_gene)
+    data = dict(spec=stacked.spec, n_valid_samples=d.n_valid_samples, out_mask=d.out_mask)
+    err = {}
+    for rows in (2 * P, 77):
+        n = torch.tensor(rows, dtype=torch.int32, device=dev)
+        err["pop_mlp_correct"] = require_equal(
+            f"lane pop_mlp_correct rows={rows}",
+            pop_mlp_correct(pop, d.x, d.labels, n_valid_rows=n, **data),
+            pop_mlp_correct_plain(pop, d.x, d.labels, n_valid_rows=n, **data))
+        err["pop_mlp_correct_mc"] = require_equal(
+            f"lane pop_mlp_correct_mc rows={rows}",
+            pop_mlp_correct_mc(pop, d.x, d.labels, deltas, t.high, n_valid_rows=n, **data),
+            pop_mlp_correct_mc_plain(pop, d.x, d.labels, dev=deltas, gene_high=t.high,
+                                     n_valid_rows=n, **data))
+    err["pop_variation_kernel"] = require_equal(
+        "lane pop_variation_kernel", pop_variation_kernel(*var), pop_variation_plain(*var))
+    for name, dv in (("pop_generation_kernel", None), ("pop_generation_kernel_mc", deltas)):
+        ch, cnt = pop_generation_kernel(*var, d.x, d.labels, dev=dv, **data)
+        ch_p, cnt_p = pop_generation_plain(*var, d.x, d.labels, dev=dv, **data)
+        err[name] = max(require_equal(f"lane {name} children", ch, ch_p),
+                        require_equal(f"lane {name} counts", cnt, cnt_p))
+    samp = d.n_valid_samples.tolist()
+    print(f"[kernels] lane axis: {L} lanes of the suite (padded topology "
+          f"{stacked.spec.topo.sizes}, G={stacked.spec.n_genes}, S={d.x.shape[1]} padded, own "
+          f"samples {sorted(set(samp))}), P={P}, K={K_DEV}: pop_mlp_correct and "
+          f"pop_mlp_correct_mc (rows {2 * P} and 77), pop_variation_kernel, "
+          f"pop_generation_kernel and its n_dev branch, one launch each for all lanes, equal "
+          f"their plain versions")
+    return dict(stacked=stacked, d=d, pop=pop, deltas=deltas, var=var, data=data, err=err,
+                samp=samp)
+
+
+def batched_paths(dev) -> dict:
+    """Phase 4b: the batched entry points, each path with the launch counts
+    set to 0 just before it and read just after; every cell against its
+    sequential ``GATrainer.run`` on the card, bit for bit."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import GATrainer, engine, sweep
+    from repro_torch.core.genome import MLPTopology
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels.backend import BackendPolicy
+
+    launches, out = {}, {}
+    # -- the paper's suite, 5 datasets x 3 seeds = 15 lanes, generation "auto"
+    cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS)
+    items = suite_problems(dev, cfg)
+    res, launches["suite"], wall = counted(lambda: sweep.run_suite(
+        [p for _, p, _ in items], SUITE_SEEDS, doping_seeds=[dp for _, _, dp in items],
+        names=list(SUITE_DATASETS)))
+    require_launches("suite", launches["suite"],
+                     {"pop_mlp_correct": 1, "pop_generation_kernel": SUITE_GENS})
+    t0 = time.perf_counter()
+    for i in range(res.n_cells):
+        ds, _, dope = items[res.dataset_of(i)]
+        tr = GATrainer(MLPTopology(ds.topology), ds.x_train, ds.y_train,
+                       dataclasses.replace(cfg, seed=res.cell(i)["seed"]), doping_seeds=dope,
+                       device=dev)
+        st, _ = tr.run()
+        require_state(f"suite cell {res.cell(i)}", res.state_at(i), st,
+                      pos=res.positions[res.dataset_of(i)])
+        if (res.unique_evals(i), res.cache_hits(i)) != (tr.unique_evals, tr.cache_hits):
+            raise AssertionError(f"suite cell {res.cell(i)}: unique_evals/cache_hits differ")
+    seq = time.perf_counter() - t0
+    print(f"[batch] run_suite {SUITE_DATASETS} x seeds {SUITE_SEEDS} = {res.n_cells} lanes, "
+          f"pop {SUITE_POP}, {SUITE_GENS} generations, generation auto, {SUITE_DOPE} doping "
+          f"genomes per dataset: {wall:.2f} s batched vs {seq:.2f} s for the {res.n_cells} "
+          f"sequential GATrainer runs; launches {launches['suite']}; every cell equals its "
+          f"unpadded sequential run (all fields, cache, unique_evals, cache_hits)")
+    out["suite"] = res
+    # -- run_grid at pendigits width, generation backends ref and phases
+    ds = load_dataset("pendigits")
+    topo = MLPTopology(ds.topology)
+    for backend in ("ref", "phases"):
+        gcfg = engine.GAConfig(pop_size=GRID_POP, generations=GRID_GENS,
+                               backends=BackendPolicy(generation=backend))
+        prob = engine.Problem.from_data(topo, ds.x_train, ds.y_train, gcfg, device=dev)
+        grid, launches[f"grid {backend}"], wall = counted(lambda: sweep.run_grid(
+            prob, GRID_SEEDS, mutation_rates=GRID_RATES))
+        require_launches(f"grid {backend}", launches[f"grid {backend}"],
+                         {"pop_mlp_correct": GRID_GENS + 1, "pop_variation_kernel": GRID_GENS})
+        for i in range(grid.n_cells):
+            c = grid.cell(i)
+            tr = GATrainer(topo, ds.x_train, ds.y_train, dataclasses.replace(
+                gcfg, seed=c["seed"], mutation_rate_gene=c["mutation_rate_gene"]), device=dev)
+            st, _ = tr.run()
+            require_state(f"grid {backend} cell {c}", grid.state_at(i), st)
+            if (grid.unique_evals(i), grid.cache_hits(i)) != (tr.unique_evals, tr.cache_hits):
+                raise AssertionError(f"grid {backend} cell {c}: unique_evals/cache_hits differ")
+        print(f"[batch] run_grid pendigits pop {GRID_POP}, seeds {GRID_SEEDS} x mutation rates "
+              f"{GRID_RATES} = {grid.n_cells} lanes, {GRID_GENS} generations, generation "
+              f"{backend}: {wall:.2f} s; launches {launches[f'grid {backend}']}; every cell "
+              f"equals its sequential run (all fields, cache, unique_evals, cache_hits)")
+    # -- run_batch on the device-variation path
+    mcfg = engine.GAConfig(pop_size=GRID_POP, generations=GRID_GENS, variation_mode="mean",
+                           n_device_samples=K_DEV)
+    prob = engine.Problem.from_data(topo, ds.x_train, ds.y_train, mcfg, device=dev)
+    (states, aux, n0), launches["batch mc"], wall = counted(
+        lambda: engine.run_batch(prob, [0, 1]))
+    require_launches("batch mc", launches["batch mc"],
+                     {"pop_mlp_correct_mc": 1, "pop_generation_kernel_mc": GRID_GENS})
+    for i, seed in enumerate((0, 1)):
+        tr = GATrainer(topo, ds.x_train, ds.y_train, dataclasses.replace(mcfg, seed=seed),
+                       device=dev)
+        st, _ = tr.run()
+        require_state(f"batch mc seed {seed}", engine.state_at(states, i), st)
+        if int(n0[i]) + int(aux[2][i].sum()) != tr.unique_evals:
+            raise AssertionError(f"batch mc seed {seed}: unique_evals differ")
+    print(f"[batch] run_batch pendigits pop {GRID_POP}, seeds [0, 1], {GRID_GENS} generations, "
+          f"variation_mode=mean K={K_DEV}, generation auto: {wall:.2f} s; launches "
+          f"{launches['batch mc']}; each run equals its sequential run")
+    # -- across devices: a small suite on the card against the CPU
+    small = engine.GAConfig(pop_size=16, generations=4)
+    runs = {}
+    for d in (dev, "cpu"):
+        probs = [engine.Problem.from_data(MLPTopology(x.topology), x.x_train, x.y_train, small,
+                                          device=d)
+                 for x in (load_dataset("breast_cancer"), load_dataset("redwine"))]
+        runs[str(d)] = sweep.run_suite(probs, [0, 1])
+    a, b = runs[str(dev)], runs["cpu"]
+    for i in range(a.n_cells):     # auto: kernel path on the card, ref on the CPU
+        require_state(f"small suite cell {i} card vs CPU", a.state_at(i), b.state_at(i),
+                      fields=FIELDS)
+    if not all(same(a.aux[k].cpu(), b.aux[k]) for k in (0, 1)) or not same(
+            a.init_evals.cpu(), b.init_evals):
+        raise AssertionError("small suite: best objectives or init evals differ card vs CPU")
+    print("[batch] run_suite breast_cancer + redwine, pop 16, 4 generations: card (kernels) "
+          "== CPU (plain paths), bit for bit")
+    # -- EvalCache hits on the card (generation "ref"), against the CPU
+    bc = load_dataset("breast_cancer")
+    hcfg = engine.GAConfig(pop_size=64, generations=20, mutation_rate_gene=0.005, seed=0,
+                           backends=BackendPolicy(generation="ref"))
+    hit = {}
+    for d in (dev, "cpu"):
+        tr = GATrainer(MLPTopology(bc.topology), bc.x_train, bc.y_train, hcfg, device=d)
+        hit[str(d)] = (tr.run()[0], tr.cache_hits, tr.unique_evals)
+    require_state("cache hits card vs CPU", hit[str(dev)][0], hit["cpu"][0])
+    if hit[str(dev)][1:] != hit["cpu"][1:] or hit["cpu"][1] <= 0:
+        raise AssertionError(f"cache hits/unique evals: card {hit[str(dev)][1:]}, CPU "
+                             f"{hit['cpu'][1:]} (must be equal, hits > 0)")
+    print(f"[batch] EvalCache hits on the card: breast_cancer pop 64, 20 generations, "
+          f"mutation 0.005, generation ref: cache_hits {hit['cpu'][1]}, unique_evals "
+          f"{hit['cpu'][2]}, every field and the cache equal the CPU run")
+    out["launches"] = launches
+    return out
+
+
+def probe_phase() -> dict:
+    """Phase 4c: the fallback chain's probe on the card. With the memo and
+    the launch counts reset, ``resolve_backends(..., fallback=True)`` must
+    launch the probe kernel once and downgrade nothing (warnings are
+    errors); a second call answers from the memo."""
+    import warnings
+
+    import torch
+    from repro_torch.kernels import _cuda, backend
+    from repro_torch.kernels.backend import BackendPolicy, resolve_backends
+
+    pol = BackendPolicy(fitness="kernel", variation="kernel", generation="kernel",
+                        ranking="sweep")
+    backend._KERNEL_OK.clear()
+    backend._WARNED.clear()
+    _cuda.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = resolve_backends(pol, fallback=True)
+        first = dict(_cuda.LAUNCHES)
+        again = resolve_backends(pol, fallback=True)
+    torch.cuda.synchronize()
+    if got != pol or again != pol:
+        raise AssertionError(f"probe: the policy was downgraded: {got}")
+    if first["probe"] != 1 or sum(first.values()) != 1 or _cuda.LAUNCHES["probe"] != 1:
+        raise AssertionError(f"probe: launches {first}, then {dict(_cuda.LAUNCHES)}; "
+                             "expected one probe launch, none from the memo")
+    print(f"[probe] resolve_backends({pol}, fallback=True): unchanged, no warning; the probe "
+          f"kernel launched once, the second call answered from the memo")
+    return {"probe": 1}
+
+
+def lane_numbers(lk: dict, suite, n_sm: int, clock_hz: float, smi: str) -> dict:
+    """Phase 6 for the lane axis: each GA kernel's lane-axis launch alone
+    (CUDA graph) against the same work as L single-lane launches, at the
+    suite's shapes; a batched generation of the suite and its ranking's
+    share against L single-lane generations."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.pop_generation.kernel import pop_generation_call
+    from repro_torch.kernels.pop_mlp.kernel import pop_mlp_correct_call
+    from repro_torch.kernels.pop_ranking import rank_select_rerank
+    from repro_torch.kernels.pop_variation.kernel import pop_variation_call
+
+    stacked, d, var, data = lk["stacked"], lk["d"], lk["var"], lk["data"]
+    L, P = stacked.n_lanes, SUITE_POP
+    G, topo = stacked.spec.n_genes, stacked.spec.topo
+    pop = lk["pop"][:, :P].contiguous()
+    deltas, samp = lk["deltas"], lk["samp"]
+    S, n_in = d.x.shape[1:]
+    n_out = topo.sizes[-1]
+    rows = torch.tensor(P, dtype=torch.int32, device=pop.device)
+    one = lambda a, i: a[i] if isinstance(a, torch.Tensor) and a.dim() else a   # noqa: E731
+
+    def at(i):
+        return dict(spec=stacked.spec, n_valid_samples=d.n_valid_samples[i],
+                    out_mask=d.out_mask[i])
+
+    def per_lane(make):
+        launches = [make(i) for i in range(L)]
+        return lambda: [c() for c in launches]
+
+    # the work is each lane's own: its samples, on the padded layout
+    data_b = sum(4 * (s * n_in + s) for s in samp) + 4 * L * (n_out + 1)
+    var_b = L * 4 * (2 * P * G + P + 5 * G + 6 + 1)
+    dev_b = L * 4 * (K_DEV * G + G)
+    moved = int((deltas != 0).sum()) // L
+    fit = ops_add(*((1, fitness_ops(topo, P, s)) for s in samp))
+    fit_mc = ops_add(*((1, fitness_mc_ops(topo, P, s, K_DEV, moved)) for s in samp))
+    vary = ops_add((L, variation_ops(P, G)))
+    cases = {
+        "pop_mlp_correct": (
+            pop_mlp_correct_call(pop, d.x, d.labels, n_valid_rows=rows, **data)[0],
+            per_lane(lambda i: pop_mlp_correct_call(pop[i], d.x[i], d.labels[i],
+                                                    n_valid_rows=rows, **at(i))[0]),
+            fit, 4 * L * (P * G + P) + data_b),
+        "pop_mlp_correct_mc": (
+            pop_mlp_correct_call(pop, d.x, d.labels, n_valid_rows=rows, dev=deltas,
+                                 gene_high=d.genes.high, **data)[0],
+            per_lane(lambda i: pop_mlp_correct_call(
+                pop[i], d.x[i], d.labels[i], n_valid_rows=rows, dev=deltas[i],
+                gene_high=d.genes.high[i], **at(i))[0]),
+            fit_mc, 4 * L * (P * G + P * K_DEV) + data_b + dev_b),
+        "pop_variation_kernel": (
+            pop_variation_call(*var)[0],
+            per_lane(lambda i: pop_variation_call(*(one(a, i) for a in var))[0]),
+            vary, var_b + 4 * L * P * G),
+        "pop_generation_kernel": (
+            pop_generation_call(*var, d.x, d.labels, **data)[0],
+            per_lane(lambda i: pop_generation_call(*(one(a, i) for a in var), d.x[i],
+                                                   d.labels[i], **at(i))[0]),
+            ops_add((1, vary), (1, fit)), var_b + data_b + 4 * L * (P * G + P)),
+        "pop_generation_kernel_mc": (
+            pop_generation_call(*var, d.x, d.labels, dev=deltas, **data)[0],
+            per_lane(lambda i: pop_generation_call(*(one(a, i) for a in var), d.x[i],
+                                                   d.labels[i], dev=deltas[i], **at(i))[0]),
+            ops_add((1, vary), (1, fit_mc)), var_b + data_b + dev_b + 4 * L * (P * G + P * K_DEV)),
+    }
+    lanes = {}
+    for name, (lane, single, ops, nbytes) in cases.items():
+        ms = device_ms(lane, reps=20)
+        per_ms = device_ms(single, reps=5)
+        bound_ms, bound_by, pipe = bound(ops, nbytes, n_sm, clock_hz)
+        lanes[name] = {"L": L, "ms": ms, "per_lane_launches_ms": per_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        print(f"[numbers] lane axis {name}: {L} suite lanes (padded {topo.sizes}, G={G}, "
+              f"P={P}, own samples{f', K={K_DEV}' if 'mc' in name else ''}): one launch "
+              f"{ms:.4f} ms on the device vs {L} single-lane launches {per_ms:.4f} ms "
+              f"({per_ms / ms:.2f}x); bound {bound_ms:.4f} ms by {bound_by} ({pipe}), "
+              f"{bound_ms / ms:.1%} of bound; {smi}")
+    # a whole batched generation of the suite and its ranking's share, host
+    # clock between CUDA events (the card waits for the host-bound glue)
+    states = suite.states
+    gen_ms = time_ms(lambda: engine.generation(stacked, states), reps=3, warmup=1)
+    pools = [(torch.cat([states.obj[i], states.obj[i]]), torch.cat([states.viol[i],
+                                                                    states.viol[i]]))
+             for i in range(L)]
+    rank_ms = time_ms(lambda: [rank_select_rerank(o, v, P) for o, v in pools], reps=3,
+                      warmup=1)
+    lanes_1 = stacked.lanes()
+    singles = [engine.state_at(states, i) for i in range(L)]
+    seq_ms = time_ms(lambda: [engine.generation(p, s) for p, s in zip(lanes_1, singles)],
+                     reps=3, warmup=1)
+    print(f"[numbers] suite generation ({L} lanes, pop {P}, generation auto): batched "
+          f"{gen_ms:.2f} ms, of which the {L} lanes' rank_select_rerank {rank_ms:.2f} ms "
+          f"({rank_ms / gen_ms:.0%}); {L} single-lane generations {seq_ms:.2f} ms; {smi}")
+    return dict(lanes=lanes, gen_ms=gen_ms, rank_ms=rank_ms, seq_ms=seq_ms)
+
+
+def probe_numbers(dev, launches: int, smi: str) -> dict:
+    """Phase 6 for the probe: its launch alone against its plain version
+    and ``torch.add``."""
+    import torch
+    from repro_torch.kernels.probe import PROBE_SHAPE, probe_call, probe_kernel, probe_plain
+
+    x = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.int32,
+                     device=dev).reshape(PROBE_SHAPE)
+    err = require_equal("probe", probe_kernel(x), probe_plain(x))
+    ms = device_ms(probe_call(x)[0], reps=50)
+    plain_ms = time_ms(lambda: probe_plain(x), reps=50)
+    lib_ms = time_ms(lambda: torch.add(x, 1), reps=50)
+    nbytes = 2 * 4 * x.numel()
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[numbers] probe {PROBE_SHAPE} int32: kernel {ms:.5f} ms on the device; plain "
+          f"{plain_ms:.4f} ms; torch.add {lib_ms:.4f} ms; bound {bound_ms:.6f} ms by bytes "
+          f"({nbytes} B); {launches} launch on the probe phase; {smi}")
+    return {"name": "probe", "route": "cuda", "source": "src/repro_torch/csrc/probe.cu",
+            "replaces": "src/repro/kernels/__init__.py:87", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": lib_ms}
+
+
 def main() -> int:
     import torch
 
@@ -588,6 +1023,9 @@ def main() -> int:
               f"pop_mlp_correct), pop_variation_kernel, pop_generation_kernel, "
               f"pop_generation_kernel_mc (children == nominal, all-zero deltas == nominal) "
               f"equal their plain versions")
+    lk = lane_kernel_checks(dev)
+    for name, e in lk["err"].items():
+        max_err[name] = max(max_err[name], e)
     torch.cuda.synchronize()
 
     # -- 4. end to end -------------------------------------------------------
@@ -627,9 +1065,7 @@ def main() -> int:
         # ref updates the EvalCache; auto and phases carry init's through
         for backend, fields in (("ref", FIELDS), ("phases", FIELDS + CACHE)):
             for f in fields:
-                a, b = finals["auto"][f], finals[backend][f]
-                if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
-                                      b.view(np.int32) if b.dtype == np.float32 else b):
+                if not same(finals["auto"][f], finals[backend][f]):
                     raise AssertionError(f"e2e {mode}: GAState.{f} differs between auto "
                                          f"and {backend}")
         missing = [k for k in PATH_KERNELS[mode] if launches[mode][k] == 0]
@@ -644,15 +1080,16 @@ def main() -> int:
         runs = {}
         for d in (dev, "cpu"):
             tr = GATrainer(MLPTopology(bc.topology), bc.x_train, bc.y_train, small, device=d)
-            runs[str(d)] = state_to_numpy(tr.run()[0])
-        for f in FIELDS:      # auto: kernel path on the card, ref on the CPU
-            a, b = runs[str(dev)][f], runs["cpu"][f]
-            if not np.array_equal(a.view(np.int32) if a.dtype == np.float32 else a,
-                                  b.view(np.int32) if b.dtype == np.float32 else b):
-                raise AssertionError(f"small run {mode}: GAState.{f} differs between card "
-                                     f"and CPU")
+            runs[str(d)] = tr.run()[0]
+        # auto: kernel path on the card, ref on the CPU
+        require_state(f"small run {mode} card vs CPU", runs[str(dev)], runs["cpu"],
+                      fields=FIELDS)
         print(f"[e2e] breast_cancer pop 32 gens 3 variation_mode={mode}: card (kernels) == "
               f"CPU (plain paths), bit for bit")
+
+    # -- 4b. the batched entry points; 4c. the fallback chain's probe ----------
+    batched = batched_paths(dev)
+    probe_launches = probe_phase()
 
     # -- 5. LM-side ops --------------------------------------------------------
     lm = lm_path(dev)
@@ -753,7 +1190,9 @@ def main() -> int:
               f"{bound_ms / ms:.1%} of bound; {per_gen:.2f} launches/generation on "
               f"variation_mode={mode} generation={backend}; {smi}")
         rows.append({"name": name, "route": "cuda", "source": s["source"],
-                     "replaces": s["replaces"], "launches": launches[mode][name],
+                     "replaces": s["replaces"],
+                     "launches": launches[mode][name] + sum(
+                         n.get(name, 0) for n in batched["launches"].values()),
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the
@@ -771,7 +1210,11 @@ def main() -> int:
             print(f"[numbers] variation_mode={mode} generation={backend} pendigits pop {P}: "
                   f"{gen_ms:.2f} ms per generation; rank_select_rerank alone (sweep, Python "
                   f"loop, pool {2 * P}, {pool_obj.shape[1]} objectives) {rank_ms:.2f} ms; {smi}")
+    ln = lane_numbers(lk, batched["suite"], n_sm, clock_hz, smi)
+    for row in rows:
+        row["lane_axis"] = ln["lanes"][row["name"]]
     rows += lm_numbers(lm, n_sm, clock_hz, smi)
+    rows.append(probe_numbers(dev, probe_launches["probe"], smi))
     # restore: the timing launches above are not main-path launches
     for k in before:
         _cuda.LAUNCHES[k] = before[k]

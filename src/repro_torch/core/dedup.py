@@ -15,6 +15,9 @@ Scatters are deterministic on every device: JAX's ``.at[].max/.min`` and
 dropped; ``.at[].set`` of cache rows uses ``amax`` with
 ``include_self=False`` (targets there are unique except the dropped slot),
 so no ``index_put_`` ever sees duplicate indices.
+
+:func:`dedup_eval_lanes` runs several independent lanes (each with its own
+cache) through ONE evaluation bounded by the widest lane's count.
 """
 from __future__ import annotations
 
@@ -151,6 +154,78 @@ def _broadcast(cond: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return cond.reshape(cond.shape + (1,) * (leaf.dim() - 1))
 
 
+@dataclasses.dataclass
+class _Pack:
+    """One dedup problem between its packing and its unpacking: the rows to
+    evaluate (``batch``, those needing evaluation first) and what maps the
+    values back."""
+    batch: torch.Tensor
+    n_eval: torch.Tensor
+    order: torch.Tensor
+    uid: torch.Tensor
+    needs: torch.Tensor
+    grp_known: torch.Tensor | None = None
+    grp_kidx: torch.Tensor | None = None
+    known: torch.Tensor | None = None
+    sp: torch.Tensor | None = None
+    hs: tuple | None = None
+    hit: torch.Tensor | None = None
+    cval: torch.Tensor | None = None
+    cslot: torch.Tensor | None = None
+    useful: torch.Tensor | None = None
+    n_hit: torch.Tensor | None = None
+
+
+def _pack(rows, known, gene_mask, cache, ids) -> _Pack:
+    N = rows.shape[0]
+    keyed = rows if gene_mask is None else torch.where(gene_mask, rows, 0)
+    h1, h2 = hash_rows(keyed, ids)
+    order = lexsort((h2, h1))
+    sp = keyed[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=rows.device),
+                       (sp[1:] != sp[:-1]).any(dim=1)])
+    uid = torch.cumsum(first.long(), 0) - 1                 # group id per sorted row
+    pk = _Pack(rows, None, order, uid, first, known=known)
+    if known is not None:
+        is_known = order < known.shape[0]
+        pk.grp_known = _segment_max(is_known.to(torch.int32), uid, N)
+        pk.grp_kidx = _segment_max(torch.where(is_known, order, -1), uid, N)
+        pk.needs = first & (pk.grp_known[uid] == 0)
+    if cache is not None:
+        pk.sp, pk.hs = sp, (h1[order], h2[order])
+        pk.hit, pk.cval, pk.cslot = cache_lookup(cache, sp, *pk.hs)
+        pk.useful = pk.needs & pk.hit               # leaders saved from evaluation
+        pk.needs = pk.needs & ~pk.hit
+        pk.n_hit = pk.useful.sum(dtype=torch.int32)
+    pack = torch.sort((~pk.needs).to(torch.int32), stable=True).indices
+    pk.n_eval = pk.needs.sum(dtype=torch.int32)
+    pk.batch = rows[order][pack]                    # actual, unmasked rows
+    return pk
+
+
+def _unpack(pk: _Pack, evaluated, cache, gen):
+    N = pk.order.shape[0]
+    uid, needs = pk.uid, pk.needs
+    slot = torch.cumsum(needs.long(), 0) - 1
+    grp_slot = _segment_max(torch.where(needs, slot, -1), uid, N)
+    val = evaluated[torch.clamp_min(grp_slot[uid], 0)]
+    if cache is not None:
+        val = torch.where(_broadcast(pk.hit, val), pk.cval, val)
+    if pk.known is not None:
+        reuse = pk.grp_known[uid] == 1
+        val = torch.where(_broadcast(reuse, val),
+                          pk.known[torch.clamp_min(pk.grp_kidx[uid], 0)], val)
+    out = torch.empty_like(val)
+    out[pk.order] = val                    # order is a permutation
+    if cache is None:
+        return out, pk.n_eval
+    ins_val = evaluated[torch.clamp_min(slot, 0)]
+    gen = 0 if gen is None else gen
+    new_cache = cache_update(cache, pk.sp, ins_val, needs, pk.useful, pk.cslot,
+                             *pk.hs, gen)
+    return out, pk.n_eval, pk.n_hit, new_cache
+
+
 def dedup_eval(eval_fn, rows: torch.Tensor, known=None, gene_mask=None,
                cache: EvalCache | None = None, gen=None, ids=None):
     """Evaluate ``rows`` with duplicate suppression → per-row values.
@@ -169,53 +244,29 @@ def dedup_eval(eval_fn, rows: torch.Tensor, known=None, gene_mask=None,
     Returns ``(values, n_eval)`` or, with a cache, ``(values, n_eval,
     n_hit, new_cache)``; n_eval/n_hit are () int32 device tensors.
     """
-    N = rows.shape[0]
-    keyed = rows if gene_mask is None else torch.where(gene_mask, rows, 0)
-    h1, h2 = hash_rows(keyed, ids)
-    order = lexsort((h2, h1))
-    sp = keyed[order]
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=rows.device),
-                       (sp[1:] != sp[:-1]).any(dim=1)])
-    uid = torch.cumsum(first.long(), 0) - 1                 # group id per sorted row
+    pk = _pack(rows, known, gene_mask, cache, ids)
+    return _unpack(pk, eval_fn(pk.batch, pk.n_eval), cache, gen)
 
-    if known is not None:
-        is_known = order < known.shape[0]
-        grp_known = _segment_max(is_known.to(torch.int32), uid, N)
-        grp_kidx = _segment_max(torch.where(is_known, order, -1), uid, N)
-        needs = first & (grp_known[uid] == 0)
-    else:
-        needs = first
 
-    if cache is not None:
-        hs1, hs2 = h1[order], h2[order]
-        hit, cval, cslot = cache_lookup(cache, sp, hs1, hs2)
-        useful = needs & hit               # leaders saved from evaluation
-        needs = needs & ~hit
-        n_hit = useful.sum(dtype=torch.int32)
-
-    pack = torch.sort((~needs).to(torch.int32), stable=True).indices
-    n_eval = needs.sum(dtype=torch.int32)
-    evaluated = eval_fn(rows[order][pack], n_eval)   # actual, unmasked rows
-
-    slot = torch.cumsum(needs.long(), 0) - 1
-    grp_slot = _segment_max(torch.where(needs, slot, -1), uid, N)
-    val = evaluated[torch.clamp_min(grp_slot[uid], 0)]
-    if cache is not None:
-        val = torch.where(_broadcast(hit, val), cval, val)
-    if known is not None:
-        reuse = grp_known[uid] == 1
-        val = torch.where(_broadcast(reuse, val),
-                          known[torch.clamp_min(grp_kidx[uid], 0)], val)
-    out = torch.empty_like(val)
-    out[order] = val                       # order is a permutation
-    if cache is None:
-        return out, n_eval
-
-    ins_val = evaluated[torch.clamp_min(slot, 0)]
-    gen = 0 if gen is None else gen
-    new_cache = cache_update(cache, sp, ins_val, needs, useful, cslot,
-                             hs1, hs2, gen)
-    return out, n_eval, n_hit, new_cache
+def dedup_eval_lanes(eval_fn, rows, known=None, gene_mask=None, cache=None,
+                     gen=None, ids=None):
+    """:func:`dedup_eval` over L independent lanes with ONE evaluation:
+    every argument but ``eval_fn`` is a list with one entry per lane (or
+    None for all lanes). Each lane packs the rows it needs first; the
+    packed batches stack to (L, N, G) and ``eval_fn(batch, n_valid)``
+    evaluates them with ``n_valid`` the max of the lanes' counts (a ()
+    int32 device tensor: the reference's ``lax.pmax`` over the batch
+    axis), returning (L, N, ...). Rows between a lane's own count and
+    that bound are evaluated but never gathered, so each lane's values,
+    ``n_eval``, ``n_hit`` and cache equal its own :func:`dedup_eval`'s.
+    Returns the per-lane results as a list."""
+    L = len(rows)
+    each = lambda a: [None] * L if a is None else a
+    known, gene_mask, cache, gen, ids = map(each, (known, gene_mask, cache, gen, ids))
+    packs = [_pack(rows[i], known[i], gene_mask[i], cache[i], ids[i]) for i in range(L)]
+    bound = torch.stack([pk.n_eval for pk in packs]).amax()
+    evaluated = eval_fn(torch.stack([pk.batch for pk in packs]), bound)
+    return [_unpack(pk, evaluated[i], cache[i], gen[i]) for i, pk in enumerate(packs)]
 
 
 def unique_rows(rows: np.ndarray):

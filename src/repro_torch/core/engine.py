@@ -8,6 +8,15 @@ is a Python loop over :func:`generation` (the reference's ``lax.scan``).
 Every float32 hyperparameter (crossover and mutation rates, the accuracy
 bound, the baseline, ``inv_n``) is a () float32 tensor, never a Python
 float, so the objective chain rounds exactly as the reference's does.
+
+Batching (the reference's ``vmap`` over whole runs) is an explicit leading
+lane axis: a batched :class:`Problem` (:func:`stack_problems`, its config
+tagged with :data:`BATCH_AXIS`) and its :class:`GAState` carry an (L, ...)
+axis on every tensor leaf. Each generation launches every CUDA kernel of
+its path once for all lanes; the glue around them (tournament, dedup
+packing, objectives, ranking) runs lane by lane. :func:`run_batch` batches
+seeds, ``sweep.run_grid``/``sweep.run_suite`` hyperparameters and
+datasets.
 """
 from __future__ import annotations
 
@@ -19,15 +28,16 @@ import torch
 
 from . import prng
 from .area import population_area
-from .dedup import EvalCache, cache_init, dedup_eval
+from .dedup import EvalCache, cache_init, dedup_eval_lanes
 from .genome import (SLOT_DEVICE, GeneTable, GenomeSpec, MLPTopology,
-                     gene_uniform, random_population)
+                     gene_uniform, pad_positions, padded_table, random_population)
 from .mlp import population_correct_counts
 from .pareto import pareto_front
 from .quantize import quantize_inputs
 from ..kernels.backend import BackendPolicy
 
 NO_BUDGET = np.int32(2**31 - 1)
+BATCH_AXIS = "ga_runs"   # the tag of a lane-stacked problem (the reference's vmap axis)
 
 _LEGACY_BACKEND_FIELDS = (("fitness", "fitness_backend"),
                           ("variation", "variation_backend"),
@@ -105,14 +115,18 @@ class GAConfig:
                 "device-instance axis")
         if self.generations_budget is not None:
             raise _not_ported("per-lane generation budgets", "A12")
-        if self.batch_axis is not None:
-            raise _not_ported("whole-run batching (batch_axis)", "A11")
+        if self.batch_axis not in (None, BATCH_AXIS):
+            raise ValueError(f"GAConfig.batch_axis must be None or {BATCH_AXIS!r}, "
+                             f"the port's one lane axis; got {self.batch_axis!r}")
 
     def with_backends(self, backends) -> "GAConfig":
         """Swap the whole :class:`BackendPolicy` (clears the mirrored
         legacy fields first, as the reference does)."""
         clear = {field: None for _, field in _LEGACY_BACKEND_FIELDS}
         return dataclasses.replace(self, backends=backends, **clear)
+
+
+_STATE_TENSORS = ("pop", "obj", "viol", "rank", "crowd", "counts", "key", "gen")
 
 
 @dataclasses.dataclass
@@ -149,7 +163,11 @@ def _f32(v, device) -> torch.Tensor:
 class Problem:
     """One (dataset, topology, config) GA problem: data tensors on one
     device plus the swept hyperparameters as () float32 tensors (filled
-    from ``cfg`` when not given)."""
+    from ``cfg`` when not given).
+
+    A batched problem (:func:`stack_problems`) carries a leading lane axis
+    (L) on every tensor leaf and shares ``spec`` and ``cfg``;
+    :meth:`lane` peels one lane off as a single problem."""
 
     x_int: torch.Tensor          # (S, n_in) int32 quantized inputs
     labels: torch.Tensor         # (S,) int32; −1 marks padded samples
@@ -168,12 +186,11 @@ class Problem:
 
     def __post_init__(self):
         dev = self.x_int.device
-        padded = ((self.out_mask is not None and bool((self.out_mask == 0).any()))
-                  or (self.n_valid_samples is not None
-                      and int(self.n_valid_samples) != self.labels.shape[0]))
-        if self.cfg.backends.fitness == "jnp" and padded:
-            raise _not_ported("the 'jnp' fitness oracle on a padded problem",
-                              "A11")
+        if self.cfg.backends.fitness == "jnp" and (
+                (self.out_mask is not None and bool((self.out_mask == 0).any()))
+                or (self.n_valid_samples is not None
+                    and bool((self.n_valid_samples != self.labels.shape[-1]).any()))):
+            raise ValueError(_JNP_PADDED)
         if self.crossover_rate is None:
             self.crossover_rate = _f32(self.cfg.crossover_rate, dev)
         if self.mutation_rate_gene is None:
@@ -199,6 +216,35 @@ class Problem:
     @property
     def device(self) -> torch.device:
         return self.x_int.device
+
+    @property
+    def n_lanes(self) -> int | None:
+        """The lane count of a batched problem, None for a single one."""
+        return self.x_int.shape[0] if self.x_int.dim() == 3 else None
+
+    def lane(self, i: int) -> "Problem":
+        """Lane ``i`` of a batched problem as a single problem (views of
+        the leaves; memoized)."""
+        memo = self.__dict__.setdefault("_lanes", {})
+        if i not in memo:
+            cfg = dataclasses.replace(self.cfg, batch_axis=None)
+            memo[i] = Problem(
+                self.x_int[i], self.labels[i], self.baseline_acc[i], self.spec, cfg,
+                self.crossover_rate[i], self.mutation_rate_gene[i], self.max_acc_loss[i],
+                self.genes.lane(i), self.out_mask[i], self.inv_n[i],
+                self.n_valid_samples[i], self.variation_scale[i],
+                self.generations_budget[i])
+        return memo[i]
+
+    def lanes(self) -> list:
+        """Every lane as a single problem: ``[self]`` for a single problem.
+        A problem tagged with :data:`BATCH_AXIS` must be stacked."""
+        if self.n_lanes is None:
+            if self.cfg.batch_axis is not None:
+                raise ValueError("a problem tagged with the batch axis runs only "
+                                 "stacked (stack_problems)")
+            return [self]
+        return [self.lane(i) for i in range(self.n_lanes)]
 
     def with_hypers(self, crossover_rate=None, mutation_rate_gene=None,
                     max_acc_loss=None, baseline_acc=None,
@@ -251,6 +297,46 @@ def use_dedup(cfg: GAConfig) -> bool:
     return dedup_mode(cfg) != "off"
 
 
+_JNP_PADDED = ("padded problems need a count-based fitness backend "
+               "(ref/kernel/auto), not 'jnp'")
+
+
+def pad_problem(problem: Problem, spec_pad: GenomeSpec,
+                n_samples: int | None = None) -> Problem:
+    """Embed ``problem`` into the padded layout of ``spec_pad``; the result
+    runs bit-identically to the original.
+
+    Genes keep their draw ids and bounds at the embedded positions
+    (padding is canonical zero: ``genome.padded_table``), extra input
+    columns are zero, ``out_mask`` pins padded output columns below any
+    real logit, and ``inv_n``/``n_valid_samples`` keep the original sample
+    count. ``n_samples`` pads the sample axis too (features 0, label −1,
+    never matched), so datasets of several sizes stack on one lane axis.
+    The "jnp" oracle averages over the padded axis, so it is refused."""
+    if problem.cfg.backends.fitness == "jnp":
+        raise ValueError(_JNP_PADDED)
+    inner = problem.spec
+    pos = pad_positions(inner, spec_pad)
+    genes = padded_table(inner, spec_pad, pos, device=problem.device)
+    x, labels = problem.x_int, problem.labels
+    S = x.shape[0]
+    pad_cols = spec_pad.topo.sizes[0] - x.shape[1]
+    pad_rows = 0 if n_samples is None else n_samples - S
+    if pad_rows < 0:
+        raise ValueError(f"n_samples={n_samples} < dataset size {S}")
+    if pad_cols or pad_rows:
+        x = torch.nn.functional.pad(x, (0, pad_cols, 0, pad_rows))
+        labels = torch.nn.functional.pad(labels, (0, pad_rows), value=-1)
+    out_mask = torch.zeros(spec_pad.topo.sizes[-1], dtype=torch.int32,
+                           device=problem.device)
+    out_mask[: inner.topo.sizes[-1]] = 1
+    return Problem(x, labels, problem.baseline_acc, spec_pad, problem.cfg,
+                   problem.crossover_rate, problem.mutation_rate_gene,
+                   problem.max_acc_loss, genes, out_mask, problem.inv_n,
+                   problem.n_valid_samples, problem.variation_scale,
+                   problem.generations_budget)
+
+
 # -- fitness ----------------------------------------------------------------
 
 def variation_on(cfg: GAConfig) -> bool:
@@ -280,20 +366,61 @@ def device_deltas(problem: Problem):
     return delta
 
 
+@dataclasses.dataclass
+class LaneData:
+    """A problem's kernel operands with a leading lane axis (L = 1 for a
+    single problem): what one launch for all lanes reads."""
+
+    x: torch.Tensor                   # (L, S, n_in) int32
+    labels: torch.Tensor              # (L, S) int32
+    out_mask: torch.Tensor            # (L, n_out) int32
+    n_valid_samples: torch.Tensor     # (L,) int32
+    genes: GeneTable                  # (L, G) leaves
+    crossover_rate: torch.Tensor      # (L,) float32
+    mutation_rate_gene: torch.Tensor  # (L,) float32
+    deltas: torch.Tensor | None       # (L, K, G) int32 under device variation
+
+
+def lane_data(problem: Problem) -> LaneData:
+    """The lane-axis operands of ``problem`` (memoized; views of a single
+    problem's leaves)."""
+    memo = problem.__dict__
+    if "_lane_data" not in memo:
+        lanes = problem.lanes()
+        if problem.n_lanes is None:
+            one = lambda t: t[None]
+            genes = GeneTable(*map(one, problem.genes.leaves()))
+        else:
+            one = lambda t: t
+            genes = problem.genes
+        deltas = (torch.stack([device_deltas(p) for p in lanes])
+                  if variation_on(problem.cfg) else None)
+        memo["_lane_data"] = LaneData(
+            one(problem.x_int), one(problem.labels), one(problem.out_mask),
+            one(problem.n_valid_samples), genes, one(problem.crossover_rate),
+            one(problem.mutation_rate_gene), deltas)
+    return memo["_lane_data"]
+
+
 def population_counts(problem: Problem, pop, n_valid=None):
     """(N, G) → (N,) int32 correct counts via the fitness dispatcher, or
     (N, K) per device instance under device-variation fitness; rows at or
-    past ``n_valid`` are not evaluated (callers overwrite them)."""
+    past ``n_valid`` are not evaluated (callers overwrite them).
+
+    With (L, N, G) rows (one lane of rows per lane of ``problem``; L = 1
+    for a single problem) every lane is scored in one evaluation → (L, N)
+    or (L, N, K); ``n_valid`` then bounds every lane."""
     from ..kernels.pop_mlp import population_correct  # lazy: kernels import core
 
     cfg = problem.cfg
-    return population_correct(
-        pop, problem.x_int, problem.labels, spec=problem.spec,
-        backend=cfg.backends.fitness, pop_tile=cfg.pop_tile,
-        sample_tile=cfg.sample_tile, n_valid_rows=n_valid,
-        n_valid_samples=problem.n_valid_samples, out_mask=problem.out_mask,
-        dev=device_deltas(problem) if variation_on(cfg) else None,
-        gene_high=problem.genes.high)
+    d = lane_data(problem)
+    rows = pop if pop.dim() == 3 else pop[None]
+    counts = population_correct(
+        rows, d.x, d.labels, spec=problem.spec, backend=cfg.backends.fitness,
+        pop_tile=cfg.pop_tile, sample_tile=cfg.sample_tile, n_valid_rows=n_valid,
+        n_valid_samples=d.n_valid_samples, out_mask=d.out_mask, dev=d.deltas,
+        gene_high=d.genes.high)
+    return counts if pop.dim() == 3 else counts[0]
 
 
 def counts_accuracy(problem: Problem, counts):
@@ -382,6 +509,15 @@ def robust_accuracy(acc, mode: str) -> torch.Tensor:
     return s * recip                  # exact: two float32 significands
 
 
+def fitness_lanes(problem: Problem, lanes: list, pops: list) -> list:
+    """:func:`fitness` of each lane's rows, scored in one evaluation."""
+    if problem.cfg.backends.fitness == "jnp":
+        return [fitness(p, pop) for p, pop in zip(lanes, pops)]
+    counts = population_counts(problem, torch.stack(pops))
+    return [objectives(p, pop, counts_accuracy(p, c))
+            for p, pop, c in zip(lanes, pops, counts)]
+
+
 def fitness(problem: Problem, pop):
     """(N, G) → ((N, 2) objectives, (N,) violation) — non-dedup path."""
     if problem.cfg.backends.fitness == "jnp":
@@ -422,49 +558,82 @@ def initial_population(problem: Problem, key, doping_seeds=None,
     return pop
 
 
-def initial_counts(problem: Problem, pop, cache: EvalCache | None = None):
-    """Integer correct counts (+ rows evaluated) of an initial population;
-    with a ``cache`` its unique rows are inserted (stamp 0) and
-    ``(counts, n_eval, cache)`` is returned."""
-    eval_fn = lambda rows, n: population_counts(problem, rows, n)
-    if cache is not None:
-        counts, n_eval, _, cache = dedup_eval(
-            eval_fn, pop, gene_mask=problem.genes.valid, cache=cache, gen=0,
-            ids=problem.genes.ids)
-        return counts, n_eval, cache
+def dedup_lanes(problem: Problem, lanes: list, pops: list, **kw) -> list:
+    """``dedup.dedup_eval`` of each lane's rows with ONE fitness evaluation
+    bounded by the widest lane's count; ``kw`` holds per-lane lists
+    (``known``, ``cache``, ``gen``)."""
+    return dedup_eval_lanes(lambda rows, n: population_counts(problem, rows, n), pops,
+                            gene_mask=[p.genes.valid for p in lanes],
+                            ids=[p.genes.ids for p in lanes], **kw)
+
+
+def initial_counts(problem: Problem, lanes: list, pops: list, caches=None) -> list:
+    """Integer correct counts (+ rows evaluated) of each lane's initial
+    population, scored in one evaluation; with ``caches`` each lane's
+    unique rows are inserted (stamp 0) and ``(counts, n_eval, cache)`` is
+    returned per lane."""
+    if caches is not None:
+        res = dedup_lanes(problem, lanes, pops, cache=caches, gen=[0] * len(pops))
+        return [(c, n, cache) for c, n, _, cache in res]
     if use_dedup(problem.cfg):
-        return dedup_eval(eval_fn, pop, gene_mask=problem.genes.valid,
-                          ids=problem.genes.ids)
-    return (population_counts(problem, pop),
-            torch.tensor(pop.shape[0], dtype=torch.int32, device=pop.device))
+        return dedup_lanes(problem, lanes, pops)
+    counts = population_counts(problem, torch.stack(pops))
+    return [(c, torch.tensor(pop.shape[0], dtype=torch.int32, device=pop.device))
+            for c, pop in zip(counts, pops)]
 
 
 def init_state(problem: Problem, key, doping_seeds=None,
                pop_size: int | None = None):
-    """Root PRNG key → (GAState, n_evaluated_rows)."""
+    """Root PRNG key → (GAState, n_evaluated_rows).
+
+    On a batched problem ``key`` is (L, 2), one key per lane, and the
+    state and the count carry the lane axis; (n, G) ``doping_seeds`` dope
+    every lane alike, (L, n, G) give each lane its own rows."""
+    lanes = problem.lanes()
+    dope = _doping_array(doping_seeds, problem.device)
+    if problem.n_lanes is None:
+        keys, dopes = [key], [dope]
+    else:
+        keys = list(key)
+        dopes = list(dope) if dope is not None and dope.dim() == 3 else [dope] * len(lanes)
+    states, n0 = _init_lanes(problem, lanes, keys, dopes, pop_size)
+    if problem.n_lanes is None:
+        return states[0], n0[0]
+    return stack_states(states), torch.stack(n0)
+
+
+def _init_lanes(problem: Problem, lanes: list, keys: list, dopes: list,
+                pop_size: int | None):
     from ..kernels.pop_ranking import population_ranking  # lazy: kernels import core
 
     cfg = problem.cfg
-    key, k_pop = prng.split(key)
-    pop = initial_population(problem, k_pop, doping_seeds, pop_size)
-    cache = None
     dev = problem.device
+    split = [prng.split(key) for key in keys]
+    pops = [initial_population(p, k_pop, dope, pop_size)
+            for p, (_, k_pop), dope in zip(lanes, split, dopes)]
+    caches = [None] * len(lanes)
     if cfg.backends.fitness == "jnp":
-        counts = torch.zeros(pop.shape[0], dtype=torch.int32, device=dev)
-        n_eval = torch.tensor(pop.shape[0], dtype=torch.int32, device=dev)
-        obj, viol = fitness(problem, pop)
+        counts = [torch.zeros(pop.shape[0], dtype=torch.int32, device=dev) for pop in pops]
+        n0 = [torch.tensor(pop.shape[0], dtype=torch.int32, device=dev) for pop in pops]
+        scored = [fitness(p, pop) for p, pop in zip(lanes, pops)]
     else:
         if dedup_mode(cfg) == "cache":
             val_shape = (cfg.n_device_samples,) if variation_on(cfg) else ()
-            cache = cache_init(cfg.cache_slots, problem.genes.low.shape[0],
-                               cfg.cache_probes, val_shape=val_shape, device=dev)
-            counts, n_eval, cache = initial_counts(problem, pop, cache)
+            caches = [cache_init(cfg.cache_slots, p.genes.low.shape[0], cfg.cache_probes,
+                                 val_shape=val_shape, device=dev) for p in lanes]
+            res = initial_counts(problem, lanes, pops, caches)
+            caches = [r[2] for r in res]
         else:
-            counts, n_eval = initial_counts(problem, pop)
-        obj, viol = objectives(problem, pop, counts_accuracy(problem, counts))
-    rank, crowd = population_ranking(obj, viol, backend=cfg.backends.ranking)
-    return GAState(pop, obj, viol, rank, crowd, counts, key,
-                   torch.zeros((), dtype=torch.int32, device=dev), cache), n_eval
+            res = initial_counts(problem, lanes, pops)
+        counts, n0 = [r[0] for r in res], [r[1] for r in res]
+        scored = [objectives(p, pop, counts_accuracy(p, c))
+                  for p, pop, c in zip(lanes, pops, counts)]
+    states = []
+    for pop, (obj, viol), c, (key, _), cache in zip(pops, scored, counts, split, caches):
+        rank, crowd = population_ranking(obj, viol, backend=cfg.backends.ranking)
+        states.append(GAState(pop, obj, viol, rank, crowd, c, key,
+                              torch.zeros((), dtype=torch.int32, device=dev), cache))
+    return states, n0
 
 
 # -- the generation step ----------------------------------------------------
@@ -479,15 +648,117 @@ def generation(problem: Problem, state: GAState):
 
 def run_scanned(problem: Problem, state: GAState, generations: int):
     """All ``generations`` in a Python loop → (final state, aux) with each
-    aux entry stacked to shape (generations,). Nothing is read back to the
-    host inside the loop."""
+    aux entry stacked to shape (generations,), or (L, generations) on a
+    batched problem. Nothing is read back to the host inside the loop."""
+    from ..kernels.pop_generation import generation_lanes
+
+    lanes = problem.lanes()
+    states = split_state(problem, state)
     auxes = []
     for _ in range(generations):
-        state, aux = generation(problem, state)
+        states, aux = generation_lanes(problem, lanes, states)
         auxes.append(aux)
-    if not auxes:
-        return state, tuple(torch.empty(0, device=problem.device) for _ in range(4))
-    return state, tuple(torch.stack(col) for col in zip(*auxes))
+    if auxes:
+        per_lane = [tuple(torch.stack([a[i][k] for a in auxes]) for k in range(4))
+                    for i in range(len(lanes))]
+    else:
+        per_lane = [tuple(torch.empty(0, device=problem.device) for _ in range(4))
+                    for _ in lanes]
+    return join_lanes(problem, states, per_lane)
+
+
+# -- whole-run batching over lanes -------------------------------------------
+
+def batch_problem(problem: Problem) -> Problem:
+    """``problem`` tagged with :data:`BATCH_AXIS`, as a lane of
+    :func:`stack_problems` (a tagged problem runs only stacked)."""
+    if problem.cfg.batch_axis == BATCH_AXIS:
+        return problem
+    return problem.replace_cfg(batch_axis=BATCH_AXIS)
+
+
+def stack_problems(problems) -> Problem:
+    """Stack single problems of one layout leaf-wise: every tensor leaf
+    gains a leading (L,) lane axis. Their topologies and configs must
+    agree; the result is tagged with :data:`BATCH_AXIS`."""
+    problems = list(problems)
+    p0 = problems[0]
+    cfg = dataclasses.replace(p0.cfg, batch_axis=BATCH_AXIS)
+    for p in problems:
+        if p.n_lanes is not None:
+            raise ValueError("stack_problems stacks single problems")
+        if p.spec.topo != p0.spec.topo:
+            raise ValueError(f"lanes must share one layout: {p.spec.topo.sizes} vs "
+                             f"{p0.spec.topo.sizes}")
+        if dataclasses.replace(p.cfg, batch_axis=BATCH_AXIS) != cfg:
+            raise ValueError(f"lanes must share one GAConfig (got {p.cfg} vs {p0.cfg})")
+    st = lambda name: torch.stack([getattr(p, name) for p in problems])
+    return Problem(st("x_int"), st("labels"), st("baseline_acc"), p0.spec, cfg,
+                   st("crossover_rate"), st("mutation_rate_gene"), st("max_acc_loss"),
+                   GeneTable.stack([p.genes for p in problems]), st("out_mask"),
+                   st("inv_n"), st("n_valid_samples"), st("variation_scale"),
+                   st("generations_budget"))
+
+
+def _cache_leaves(cache: EvalCache) -> tuple:
+    return cache.rows, cache.vals, cache.stamp
+
+
+def state_at(states: GAState, i: int) -> GAState:
+    """Peel lane ``i`` off a batched GAState (views)."""
+    cache = None
+    if states.cache is not None:
+        cache = EvalCache(*(a[i] for a in _cache_leaves(states.cache)), states.cache.probes)
+    return GAState(*(getattr(states, f)[i] for f in _STATE_TENSORS), cache)
+
+
+def stack_states(states: list) -> GAState:
+    """Per-lane GAStates → one batched GAState."""
+    st = lambda f: torch.stack([getattr(s, f) for s in states])
+    cache = None
+    if states[0].cache is not None:
+        cache = EvalCache(*(torch.stack(a) for a in zip(*(_cache_leaves(s.cache)
+                                                           for s in states))),
+                          states[0].cache.probes)
+    return GAState(*(st(f) for f in _STATE_TENSORS), cache)
+
+
+def join_lanes(problem: Problem, states: list, auxes: list):
+    """Per-lane generation results → (state, aux) in the problem's form:
+    the lane's own for a single problem, stacked on the lane axis else."""
+    if problem.n_lanes is None:
+        return states[0], auxes[0]
+    return stack_states(states), tuple(torch.stack(c) for c in zip(*auxes))
+
+
+def split_state(problem: Problem, state: GAState) -> list:
+    """The state of each lane of ``problem``: ``[state]`` for a single one."""
+    if problem.n_lanes is None:
+        return [state]
+    return [state_at(state, i) for i in range(problem.n_lanes)]
+
+
+def run_batch(problem: Problem, seeds, generations: int | None = None,
+              doping_seeds=None):
+    """Whole runs of one problem over a seed axis, as L lanes of one
+    batched run: every generation launches each kernel of its path once
+    for all seeds.
+
+    Returns (states, aux, init_evals): every GAState leaf and aux entry
+    gains a leading (N,) axis (:func:`state_at` peels a run). Each run is
+    bit-identical to its own ``init_state`` + ``run_scanned`` and to
+    ``GATrainer.run`` with that seed, dedup on or off: the lanes share one
+    dedup evaluation bound per generation and gather only their own rows.
+    The reference's ``jit`` argument steers XLA only and is not taken."""
+    if problem.n_lanes is not None:
+        raise ValueError("run_batch takes a single (unstacked) problem")
+    gens = problem.cfg.generations if generations is None else generations
+    seeds = [int(s) for s in seeds]
+    batched = stack_problems([batch_problem(problem)] * len(seeds))
+    keys = torch.stack([prng.PRNGKey(s, problem.device) for s in seeds])
+    states, n0 = init_state(batched, keys, doping_seeds)
+    states, aux = run_scanned(batched, states, gens)
+    return states, aux, n0
 
 
 # -- host-side output -------------------------------------------------------

@@ -71,6 +71,18 @@ class GeneTable:
     ids: torch.Tensor        # (G,) int32 PRNG draw ids
     valid: torch.Tensor      # (G,) bool — False on padding
 
+    def leaves(self) -> tuple:
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
+
+    def lane(self, i: int) -> "GeneTable":
+        """Lane ``i`` of a table whose leaves carry a leading lane axis."""
+        return GeneTable(*(a[i] for a in self.leaves()))
+
+    @staticmethod
+    def stack(tables) -> "GeneTable":
+        """Tables of equal gene count stacked on a leading lane axis."""
+        return GeneTable(*(torch.stack(a) for a in zip(*(t.leaves() for t in tables))))
+
 
 # -- counter-based gene RNG -------------------------------------------------
 
@@ -274,3 +286,73 @@ class GenomeSpec:
             # QReLU rescale ≈ log2(scale * input_range) to undo the blow-up
             g[sl.rshift.start] = int(np.clip(np.round(np.log2(scale * 15)), 0, 7))
         return g
+
+
+# -- padded-canonical embedding (batching across topologies) -----------------
+
+def max_topology(topos: Sequence[MLPTopology]) -> MLPTopology:
+    """The elementwise-max topology every ``topos`` member embeds into."""
+    first = topos[0]
+    for t in topos:
+        if t.n_layers != first.n_layers:
+            raise ValueError("suite topologies must share the layer count")
+        if (t.input_bits, t.act_bits, t.weight_bits, t.bias_bits) != (
+                first.input_bits, first.act_bits, first.weight_bits, first.bias_bits):
+            raise ValueError("suite topologies must share all bit widths")
+    sizes = tuple(max(t.sizes[i] for t in topos) for i in range(len(first.sizes)))
+    return MLPTopology(sizes, first.input_bits, first.act_bits, first.weight_bits,
+                       first.bias_bits)
+
+
+def pad_positions(inner: GenomeSpec, padded: GenomeSpec) -> np.ndarray:
+    """(inner.n_genes,) positions of each inner gene in the padded layout:
+    weight (i, j) of a layer lands on the padded layer's (i, j), bias j on
+    bias j, the shift genes on each other; every other padded gene is
+    padding (canonical zero)."""
+    if len(inner.layers) != len(padded.layers):
+        raise ValueError("padded spec must have the same layer count")
+    pos = np.empty(inner.n_genes, np.int64)
+    for si, sp in zip(inner.layers, padded.layers):
+        if si.fan_in > sp.fan_in or si.fan_out > sp.fan_out:
+            raise ValueError("padded layer smaller than the inner layer")
+        if si.in_bits != sp.in_bits:
+            raise ValueError("padded layer changes the input bit width")
+        t = np.arange(si.fan_in * si.fan_out)
+        woff = (t // si.fan_out) * sp.fan_out + t % si.fan_out
+        pos[si.masks] = sp.masks.start + woff
+        pos[si.signs] = sp.signs.start + woff
+        pos[si.exps] = sp.exps.start + woff
+        pos[si.biases] = sp.biases.start + np.arange(si.fan_out)
+        pos[si.bshift] = sp.bshift.start
+        pos[si.rshift] = sp.rshift.start
+    return pos
+
+
+def padded_table(inner: GenomeSpec, padded: GenomeSpec, pos: np.ndarray | None = None,
+                 device="cpu") -> GeneTable:
+    """``inner``'s GeneTable embedded in ``padded``'s flat layout on
+    ``device``: embedded genes keep their bounds, mask metadata and inner
+    draw ids (a padded run draws as the unpadded one does); padding gets
+    bounds [0, 1), no mask, id 0 and ``valid=False``."""
+    pos = pad_positions(inner, padded) if pos is None else pos
+    G = padded.n_genes
+    low, high = np.zeros(G, np.int32), np.ones(G, np.int32)
+    is_mask, valid = np.zeros(G, bool), np.zeros(G, bool)
+    mask_bits, ids = np.zeros(G, np.int32), np.zeros(G, np.int32)
+    low[pos] = inner.low
+    high[pos] = inner.high
+    is_mask[pos] = inner.is_mask
+    mask_bits[pos] = inner.mask_bits
+    ids[pos] = np.arange(inner.n_genes, dtype=np.int32)
+    valid[pos] = True
+    t = lambda a: torch.as_tensor(a, device=device)
+    return GeneTable(t(low), t(high), t(is_mask), t(mask_bits), t(ids), t(valid))
+
+
+def pad_genomes(genomes, pos: np.ndarray, n_genes_padded: int) -> np.ndarray:
+    """Scatter (..., inner_genes) chromosomes into the padded layout with
+    canonical-zero padding (host side: doping seeds and tests)."""
+    g = np.asarray(genomes, np.int32)
+    out = np.zeros(g.shape[:-1] + (n_genes_padded,), np.int32)
+    out[..., pos] = g
+    return out

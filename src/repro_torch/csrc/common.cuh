@@ -245,6 +245,12 @@ struct Genes {
   const int32_t* is_mask;
   const int32_t* mask_bits;
   const int32_t* ids;
+
+  // The table of lane `lane` of (L, G) tables.
+  __device__ __forceinline__ Genes lane(int lane, int G) const {
+    const size_t o = static_cast<size_t>(lane) * G;
+    return Genes{low + o, high + o, is_mask + o, mask_bits + o, ids + o};
+  }
 };
 
 // Crossover source select -> mutation -> clip for one gene of one child.

@@ -19,6 +19,11 @@
 // their sweep. P must be even (pairs never straddle a tile: kPopTile is even).
 // The n_dev branch keeps the delta table and the gene bounds in shared memory
 // beside the children (McSmem) and sweeps with count_tile_mc.
+//
+// Lanes: L independent populations of one layout (the lanes of a batched GA
+// run) share one launch on grid.z; each lane reads its own parents, gates, gene
+// table, slot keys, mutation rate, samples, labels, sample bound, output mask
+// and delta table at lane-strided offsets. A single population is L = 1.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -39,23 +44,36 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
   int32_t* om = kMc ? sm.om : g_tile + kPopTile * G;
   int32_t* red = kMc ? sm.red : om + kMaxWidth;
 
+  const int lane = blockIdx.z;
+  const int n_out = net.layer[net.n_layers - 1].fan_out;
+  const size_t frame = static_cast<size_t>(lane) * P * G;
+  a_rows += frame;
+  b_rows += frame;
+  children += frame;
+  do_rows += static_cast<size_t>(lane) * P;
+  x += static_cast<size_t>(lane) * S * n_in;
+  labels += static_cast<size_t>(lane) * S;
+  out_mask += lane * n_out;
+  if (kMc) dev += static_cast<size_t>(lane) * n_dev * G;
+  counts += static_cast<size_t>(lane) * P * (kMc ? n_dev : 1);
+  const Genes tl = t.lane(lane, G);
+
   const int row0 = blockIdx.x * kPopTile;
   const int n_rows = min(kPopTile, P - row0);
   uint32_t keys[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) keys[k] = slot_keys[k];
-  const float pm_v = *pm;
+  for (int k = 0; k < 6; ++k) keys[k] = slot_keys[lane * 6 + k];
+  const float pm_v = pm[lane];
   for (int q = 0; q < n_rows / 2; ++q) {
     for (int j = threadIdx.x; j < G; j += blockDim.x) {
       int32_t c0, c1;
-      child_pair((row0 >> 1) + q, j, P, G, a_rows, b_rows, do_rows, t, keys, pm_v, c0, c1);
+      child_pair((row0 >> 1) + q, j, P, G, a_rows, b_rows, do_rows, tl, keys, pm_v, c0, c1);
       g_tile[(2 * q) * G + j] = c0;
       g_tile[(2 * q + 1) * G + j] = c1;
     }
   }
-  const int n_out = net.layer[net.n_layers - 1].fan_out;
   if (kMc) {
-    sm.load(dev, t.high, out_mask, n_dev, G, n_out);
+    sm.load(dev, tl.high, out_mask, n_dev, G, n_out);
   } else {
     if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
     if (threadIdx.x < kPopTile) red[threadIdx.x] = 0;
@@ -66,7 +84,7 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
       children[static_cast<size_t>(row0) * G + k] = g_tile[k];
 
   const int s_begin = blockIdx.y * kSampleChunk;
-  const int s_end = min(min(S, *n_valid_samples), s_begin + kSampleChunk);
+  const int s_end = min(min(S, n_valid_samples[lane]), s_begin + kSampleChunk);
   if (s_begin >= s_end) return;  // uniform across the block
   if (kMc)
     count_tile_mc(g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, om, sm.dev, sm.high,
@@ -77,8 +95,8 @@ pop_generation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restr
 
 // Both branches' launch: n_dev == 0 (dev null) is the nominal branch.
 int launch_generation(const int32_t* a_rows, const int32_t* b_rows, const int32_t* do_rows,
-                      const Genes& t, const uint32_t* slot_keys, const float* pm, int P, int G,
-                      const int32_t* x, const int32_t* labels, int S, int n_in,
+                      const Genes& t, const uint32_t* slot_keys, const float* pm, int L,
+                      int P, int G, const int32_t* x, const int32_t* labels, int S, int n_in,
                       const int32_t* n_valid_samples, const int32_t* out_mask,
                       const int32_t* dev, int n_dev, const int32_t* net_desc,
                       int32_t* children, int32_t* counts, void* stream) {
@@ -89,7 +107,7 @@ int launch_generation(const int32_t* a_rows, const int32_t* b_rows, const int32_
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
-  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
+  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks, L);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       a_rows, b_rows, do_rows, t, slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples,
       out_mask, dev, n_dev, net, children, counts);
@@ -104,28 +122,28 @@ extern "C" int pop_generation_launch(const int32_t* a_rows, const int32_t* b_row
                                      const int32_t* do_rows, const int32_t* low,
                                      const int32_t* high, const int32_t* is_mask,
                                      const int32_t* mask_bits, const int32_t* ids,
-                                     const uint32_t* slot_keys, const float* pm, int P, int G,
-                                     const int32_t* x, const int32_t* labels, int S, int n_in,
-                                     const int32_t* n_valid_samples, const int32_t* out_mask,
-                                     const int32_t* net_desc, int32_t* children,
-                                     int32_t* counts, void* stream) {
+                                     const uint32_t* slot_keys, const float* pm, int L, int P,
+                                     int G, const int32_t* x, const int32_t* labels, int S,
+                                     int n_in, const int32_t* n_valid_samples,
+                                     const int32_t* out_mask, const int32_t* net_desc,
+                                     int32_t* children, int32_t* counts, void* stream) {
   return launch_generation(a_rows, b_rows, do_rows, Genes{low, high, is_mask, mask_bits, ids},
-                           slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
+                           slot_keys, pm, L, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
                            nullptr, 0, net_desc, children, counts, stream);
 }
 
-// The n_dev branch: dev is the (n_dev, G) delta table, n_dev >= 1; counts (P, n_dev).
+// The n_dev branch: dev holds L (n_dev, G) delta tables, n_dev >= 1; counts (L, P, n_dev).
 extern "C" int pop_generation_mc_launch(const int32_t* a_rows, const int32_t* b_rows,
                                         const int32_t* do_rows, const int32_t* low,
                                         const int32_t* high, const int32_t* is_mask,
                                         const int32_t* mask_bits, const int32_t* ids,
-                                        const uint32_t* slot_keys, const float* pm, int P,
-                                        int G, const int32_t* x, const int32_t* labels, int S,
-                                        int n_in, const int32_t* n_valid_samples,
+                                        const uint32_t* slot_keys, const float* pm, int L,
+                                        int P, int G, const int32_t* x, const int32_t* labels,
+                                        int S, int n_in, const int32_t* n_valid_samples,
                                         const int32_t* out_mask, const int32_t* dev, int n_dev,
                                         const int32_t* net_desc, int32_t* children,
                                         int32_t* counts, void* stream) {
   return launch_generation(a_rows, b_rows, do_rows, Genes{low, high, is_mask, mask_bits, ids},
-                           slot_keys, pm, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
+                           slot_keys, pm, L, P, G, x, labels, S, n_in, n_valid_samples, out_mask,
                            dev, n_dev, net_desc, children, counts, stream);
 }

@@ -17,11 +17,17 @@
 // atomicAdd per genome: integer atomics are order independent, so the counts
 // are exact and repeatable.
 //
-// The dedup bound n_valid_rows and the sample bound n_valid_samples are read
-// from device int32 scalars (the dedup pass computes them on the device; a
-// host read would synchronise every generation). Blocks wholly past either
-// bound exit at once; rows >= n_valid_rows and samples >= n_valid_samples are
-// never counted, so those rows keep the zeros the wrapper allocated.
+// Lanes: L independent problems of one layout (the lanes of a batched GA run:
+// seeds, hyperparameter cells, padded datasets) share one launch; the lane is
+// grid.z, and each lane reads its own genomes, samples, labels, output mask and
+// sample bound at lane-strided offsets. A single problem is L = 1.
+//
+// The dedup bound n_valid_rows (one device scalar for every lane: the widest
+// lane's count) and the per-lane sample bounds n_valid_samples[L] are read on
+// the device (the dedup pass computes them there; a host read would
+// synchronise every generation). Blocks wholly past either bound exit at once;
+// rows >= n_valid_rows and samples >= n_valid_samples are never counted, so
+// those rows keep the zeros the wrapper allocated.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -37,15 +43,21 @@ pop_mlp_correct_kernel(const int32_t* __restrict__ pop, int P, int G,
   int32_t* om = g_tile + kPopTile * G;
   int32_t* red = om + kMaxWidth;
 
+  const int lane = blockIdx.z;
   const int row0 = blockIdx.x * kPopTile;
   const int n_rows = min(kPopTile, min(P, *n_valid_rows) - row0);
   const int s_begin = blockIdx.y * kSampleChunk;
-  const int s_end = min(min(S, *n_valid_samples), s_begin + kSampleChunk);
+  const int s_end = min(min(S, n_valid_samples[lane]), s_begin + kSampleChunk);
   if (n_rows <= 0 || s_begin >= s_end) return;  // whole block past a bound
+  const int n_out = net.layer[net.n_layers - 1].fan_out;
+  pop += static_cast<size_t>(lane) * P * G;
+  x += static_cast<size_t>(lane) * S * n_in;
+  labels += static_cast<size_t>(lane) * S;
+  out_mask += lane * n_out;
+  counts += static_cast<size_t>(lane) * P;
 
   for (int k = threadIdx.x; k < n_rows * G; k += blockDim.x)
     g_tile[k] = pop[static_cast<size_t>(row0) * G + k];
-  const int n_out = net.layer[net.n_layers - 1].fan_out;
   if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
   if (threadIdx.x < kPopTile) red[threadIdx.x] = 0;
   __syncthreads();
@@ -68,15 +80,24 @@ pop_mlp_correct_mc_kernel(const int32_t* __restrict__ pop, int P, int G,
   extern __shared__ int32_t smem[];
   McSmem sm(smem, G, n_dev);
 
+  const int lane = blockIdx.z;
   const int row0 = blockIdx.x * kPopTile;
   const int n_rows = min(kPopTile, min(P, *n_valid_rows) - row0);
   const int s_begin = blockIdx.y * kSampleChunk;
-  const int s_end = min(min(S, *n_valid_samples), s_begin + kSampleChunk);
+  const int s_end = min(min(S, n_valid_samples[lane]), s_begin + kSampleChunk);
   if (n_rows <= 0 || s_begin >= s_end) return;  // whole block past a bound
+  const int n_out = net.layer[net.n_layers - 1].fan_out;
+  pop += static_cast<size_t>(lane) * P * G;
+  x += static_cast<size_t>(lane) * S * n_in;
+  labels += static_cast<size_t>(lane) * S;
+  out_mask += lane * n_out;
+  dev += static_cast<size_t>(lane) * n_dev * G;
+  high += static_cast<size_t>(lane) * G;
+  counts += static_cast<size_t>(lane) * P * n_dev;
 
   for (int k = threadIdx.x; k < n_rows * G; k += blockDim.x)
     sm.g_tile[k] = pop[static_cast<size_t>(row0) * G + k];
-  sm.load(dev, high, out_mask, n_dev, G, net.layer[net.n_layers - 1].fan_out);
+  sm.load(dev, high, out_mask, n_dev, G, n_out);
   __syncthreads();
   count_tile_mc(sm.g_tile, n_rows, G, x, labels, n_in, s_begin, s_end, net, sm.om, sm.dev,
                 sm.high, n_dev, sm.red, counts + static_cast<size_t>(row0) * n_dev);
@@ -86,7 +107,7 @@ pop_mlp_correct_mc_kernel(const int32_t* __restrict__ pop, int P, int G,
 
 using namespace repro_torch;
 
-extern "C" int pop_mlp_correct_launch(const int32_t* pop, int P, int G, const int32_t* x,
+extern "C" int pop_mlp_correct_launch(const int32_t* pop, int L, int P, int G, const int32_t* x,
                                       const int32_t* labels, int S, int n_in,
                                       const int32_t* n_valid_rows,
                                       const int32_t* n_valid_samples,
@@ -97,13 +118,14 @@ extern "C" int pop_mlp_correct_launch(const int32_t* pop, int P, int G, const in
   const cudaError_t e = allow_smem(pop_mlp_correct_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
-  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
+  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks, L);
   pop_mlp_correct_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       pop, P, G, x, labels, S, n_in, n_valid_rows, n_valid_samples, out_mask, net, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int pop_mlp_correct_mc_launch(const int32_t* pop, int P, int G, const int32_t* x,
+extern "C" int pop_mlp_correct_mc_launch(const int32_t* pop, int L, int P, int G,
+                                         const int32_t* x,
                                          const int32_t* labels, int S, int n_in,
                                          const int32_t* n_valid_rows,
                                          const int32_t* n_valid_samples,
@@ -116,7 +138,7 @@ extern "C" int pop_mlp_correct_mc_launch(const int32_t* pop, int P, int G, const
   const cudaError_t e = allow_smem(pop_mlp_correct_mc_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n_chunks = S > 0 ? (S + kSampleChunk - 1) / kSampleChunk : 1;
-  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks);
+  const dim3 grid((P + kPopTile - 1) / kPopTile, n_chunks, L);
   pop_mlp_correct_mc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       pop, P, G, x, labels, S, n_in, n_valid_rows, n_valid_samples, out_mask, dev, high, n_dev,
       net, counts);

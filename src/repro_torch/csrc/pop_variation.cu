@@ -16,6 +16,10 @@
 // registers, and neighbouring threads touch neighbouring genes (coalesced).
 // The kernel does no division, and its float draws use __fmul_rn/__fadd_rn so
 // floor(lo + u * (hi - lo)) rounds exactly like the reference.
+//
+// Lanes: L independent populations (the lanes of a batched GA run) share one
+// launch on grid.z; each lane reads its own parents, gates, (G,) gene table,
+// slot keys and mutation rate at lane-strided offsets. A single one is L = 1.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -29,12 +33,18 @@ pop_variation_kernel(const int32_t* __restrict__ a_rows, const int32_t* __restri
                      int P, int G, int32_t* children) {
   const int j = blockIdx.x * kGeneThreads + threadIdx.x;
   const int r = blockIdx.y;
+  const int lane = blockIdx.z;
   if (j >= G) return;
+  const size_t frame = static_cast<size_t>(lane) * P * G;
+  a_rows += frame;
+  b_rows += frame;
+  children += frame;
+  do_rows += static_cast<size_t>(lane) * P;
   uint32_t keys[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) keys[k] = slot_keys[k];
+  for (int k = 0; k < 6; ++k) keys[k] = slot_keys[lane * 6 + k];
   int32_t c0, c1;
-  child_pair(r, j, P, G, a_rows, b_rows, do_rows, t, keys, *pm, c0, c1);
+  child_pair(r, j, P, G, a_rows, b_rows, do_rows, t.lane(lane, G), keys, pm[lane], c0, c1);
   children[static_cast<size_t>(2 * r) * G + j] = c0;
   children[static_cast<size_t>(2 * r + 1) * G + j] = c1;
 }
@@ -47,10 +57,10 @@ extern "C" int pop_variation_launch(const int32_t* a_rows, const int32_t* b_rows
                                     const int32_t* do_rows, const int32_t* low,
                                     const int32_t* high, const int32_t* is_mask,
                                     const int32_t* mask_bits, const int32_t* ids,
-                                    const uint32_t* slot_keys, const float* pm, int P, int G,
-                                    int32_t* children, void* stream) {
+                                    const uint32_t* slot_keys, const float* pm, int L, int P,
+                                    int G, int32_t* children, void* stream) {
   const Genes t{low, high, is_mask, mask_bits, ids};
-  const dim3 grid((G + kGeneThreads - 1) / kGeneThreads, P / 2);
+  const dim3 grid((G + kGeneThreads - 1) / kGeneThreads, P / 2, L);
   pop_variation_kernel<<<grid, kGeneThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       a_rows, b_rows, do_rows, t, slot_keys, pm, P, G, children);
   return static_cast<int>(cudaGetLastError());

@@ -3,10 +3,12 @@
 kernel (kernel.py wrapping ``repro_torch/csrc``): the GA's fitness,
 variation, generation and ranking, and the LM-side ops (SSD state scan,
 causal flash attention, pow2 linear). Backend names and their resolution
-live in :mod:`.backend`; the CUDA build and launch counters in
+live in :mod:`.backend`, with the opt-in fallback chains and their probe
+kernel (:mod:`.probe`); the CUDA build and launch counters in
 :mod:`._cuda`.
 """
-from .backend import (BackendPolicy, resolve_backends, BACKEND_CHOICES,
+from .backend import (BackendPolicy, resolve_backends, apply_fallbacks,
+                      backend_available, FALLBACK_CHAINS, BACKEND_CHOICES,
                       FITNESS_BACKENDS, VARIATION_BACKENDS,
                       GENERATION_BACKENDS, RANKING_BACKENDS)
 from .pow2_matmul import pow2_linear, pow2_matmul, pow2_matmul_ref, pack_weights

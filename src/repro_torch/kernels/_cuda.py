@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("pop_mlp", "pop_variation", "pop_generation", "ssd_scan", "pow2_matmul",
-           "flash_attention")
+           "flash_attention", "probe")
 LIBRARY = "libreprotorch.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -36,24 +36,25 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC
 LAUNCHES = dict.fromkeys(("pop_mlp_correct", "pop_variation_kernel",
                           "pop_generation_kernel", "pop_mlp_correct_mc",
                           "pop_generation_kernel_mc", "ssd_state_scan", "pow2_matmul",
-                          "flash_attention"), 0)
+                          "flash_attention", "probe"), 0)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer (device buffers, host descriptor, stream) is a
 # c_void_p, every size or flag a c_int, a float scale a c_float; each
 # launcher returns the cudaError_t code.
 _SIGNATURES = {
-    "pop_mlp_correct_launch": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
-    "pop_variation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P),
-    "pop_generation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+    "pop_mlp_correct_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P),
+    "pop_variation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
+    "pop_generation_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                               _I, _I, _P, _P, _P, _P, _P, _P),
-    "pop_mlp_correct_mc_launch": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-                                  _P, _P),
-    "pop_generation_mc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+    "pop_mlp_correct_mc_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I,
+                                  _P, _P, _P),
+    "pop_generation_mc_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                                  _I, _I, _P, _P, _P, _I, _P, _P, _P, _P),
     "ssd_state_scan_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     "pow2_matmul_launch": (_P, _I, _P, _I, _I, _I, _P, _P),
     "flash_attention_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),
+    "probe_launch": (_P, _I, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -191,6 +192,25 @@ def check_smem(nbytes: int, device: torch.device, what: str) -> None:
     if limit is not None and nbytes > limit:
         raise ValueError(f"{what} needs {nbytes} B of shared memory per block, "
                          f"more than the card's {limit} B")
+
+
+def lane_bounds(v, default: int, L: int, device: torch.device) -> torch.Tensor:
+    """An (L,) int32 per-lane bound on ``device``: ``default`` for every
+    lane when ``v`` is None, one value for every lane when ``v`` is an int
+    or a () tensor, ``v`` itself when it is an (L,) tensor (a tensor on the
+    device is never read back to the host)."""
+    t = torch.as_tensor(default if v is None else v, dtype=torch.int32, device=device)
+    if t.dim() == 0:
+        t = t.expand(L)
+    if tuple(t.shape) != (L,):
+        raise ValueError(f"a per-lane bound must be () or ({L},), got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def lane_item(v, i: int):
+    """Lane ``i`` of an argument that is None, an int, a () tensor (each
+    the same for every lane) or a tensor with a leading lane axis."""
+    return v[i] if isinstance(v, torch.Tensor) and v.dim() else v
 
 
 def device_scalar(v, default: int, device: torch.device) -> torch.Tensor:

@@ -10,6 +10,9 @@ evaluated. Its ``n_dev`` branch (``dev``, a (K, G) device-variation delta
 table) scores each child on the K perturbed device instances instead:
 (P, K) counts, the same children.
 
+Every operand may carry a leading lane axis: L independent populations made
+and scored in one launch (a single one is the case L = 1).
+
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`pop_generation_plain`.
 """
@@ -31,7 +34,8 @@ def pop_generation_plain(a_rows, b_rows, do_rows, table_low, table_high,
                          n_valid_samples=None, out_mask=None, dev=None):
     """The kernel's plain PyTorch version: the variation kernel's plain
     version, then the fitness kernel's (with ``dev``, the device-instance
-    one against the bounds ``table_high``), with no row bound."""
+    one against the bounds ``table_high``), with no row bound; lanes
+    too."""
     children = pop_variation_plain(a_rows, b_rows, do_rows, table_low,
                                    table_high, table_is_mask, table_mask_bits,
                                    table_ids, slot_keys, pm_gene)
@@ -56,36 +60,42 @@ def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
     deltas, dev = dev, a_rows.device
     if dev.type != "cuda":
         raise ValueError(f"pop_generation_kernel launches on CUDA tensors, got {dev}")
-    P, G = a_rows.shape
-    S, n_in = x_int.shape
+    single, o = variation_operands(a_rows, b_rows, do_rows, table_low, table_high,
+                                   table_is_mask, table_mask_bits, table_ids,
+                                   slot_keys, pm_gene)
+    if single:
+        x_int, labels = x_int[None], labels[None]
+        out_mask = None if out_mask is None else out_mask[None]
+        deltas = None if deltas is None else deltas[None]
+    L, P, G = o["a_rows"].shape
+    S, n_in = x_int.shape[1:]
     n_out = spec.topo.sizes[-1]
     if G != spec.n_genes or n_in != spec.topo.sizes[0]:
         raise ValueError(f"shapes a_rows {tuple(a_rows.shape)} / x "
                          f"{tuple(x_int.shape)} do not fit topology {spec.topo.sizes}")
     desc = _cuda.host_ints(net_desc(spec))
-    o = variation_operands(a_rows, b_rows, do_rows, table_low, table_high,
-                           table_is_mask, table_mask_bits, table_ids,
-                           slot_keys, pm_gene)
-    _cuda.check(x_int, "x_int", torch.int32, (S, n_in), dev)
-    _cuda.check(labels, "labels", torch.int32, (S,), dev)
-    om = out_mask_or_ones(out_mask, n_out, dev)
-    _cuda.check(om, "out_mask", torch.int32, (n_out,), dev)
-    samp = _cuda.device_scalar(n_valid_samples, S, dev)
-    children = torch.empty((P, G), dtype=torch.int32, device=dev)
-    head = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), P, G, x_int.data_ptr(),
+    _cuda.check(x_int, "x_int", torch.int32, (L, S, n_in), dev)
+    _cuda.check(labels, "labels", torch.int32, (L, S), dev)
+    om = out_mask_or_ones(out_mask, (L, n_out), dev)
+    _cuda.check(om, "out_mask", torch.int32, (L, n_out), dev)
+    samp = _cuda.lane_bounds(n_valid_samples, S, L, dev)
+    children = torch.empty((L, P, G), dtype=torch.int32, device=dev)
+    head = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), L, P, G, x_int.data_ptr(),
             labels.data_ptr(), S, n_in, samp.data_ptr(), om.data_ptr())
     keep = (*o.values(), x_int, labels, samp, om, desc, children)
     if deltas is None:
-        counts = torch.zeros(P, dtype=torch.int32, device=dev)
+        counts = torch.zeros((L, P), dtype=torch.int32, device=dev)
         launch = _cuda.Launch("pop_generation_kernel", "pop_generation_launch",
                               (*head, desc, children.data_ptr(), counts.data_ptr()),
                               (*keep, counts))
-        return launch, children, counts
-    d, _ = check_deltas(deltas, o["high"], G, dev)
-    counts = torch.zeros((P, d.shape[0]), dtype=torch.int32, device=dev)
-    launch = _cuda.Launch("pop_generation_kernel_mc", "pop_generation_mc_launch",
-                          (*head, d.data_ptr(), d.shape[0], desc, children.data_ptr(),
-                           counts.data_ptr()), (*keep, d, counts))
+    else:
+        d, _ = check_deltas(deltas, o["high"], L, G, dev)
+        counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=dev)
+        launch = _cuda.Launch("pop_generation_kernel_mc", "pop_generation_mc_launch",
+                              (*head, d.data_ptr(), d.shape[1], desc, children.data_ptr(),
+                               counts.data_ptr()), (*keep, d, counts))
+    if single:
+        return launch, children[0], counts[0]
     return launch, children, counts
 
 
@@ -99,7 +109,12 @@ def pop_generation_kernel(a_rows, b_rows, do_rows, table_low, table_high,
     tensor) bounds the counted samples; ``out_mask`` marks the valid output
     columns. ``dev`` ((K, G) deltas, zero off the exponent genes): the
     counts are (P, K), child p on device instance k, its exponents clipped
-    into ``[0, table_high - 1]``."""
+    into ``[0, table_high - 1]``.
+
+    Lanes: the variation operands as ``pop_variation_kernel`` takes them,
+    x_int (L, S, n_in), labels (L, S), n_valid_samples () or (L,),
+    out_mask (L, n_out), dev (L, K, G) → (L, P, G) children and (L, P) or
+    (L, P, K) counts in one launch."""
     if a_rows.device.type == "cpu":
         return pop_generation_plain(a_rows, b_rows, do_rows, table_low,
                                     table_high, table_is_mask, table_mask_bits,

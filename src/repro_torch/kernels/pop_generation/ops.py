@@ -12,63 +12,78 @@ Backends (``GAConfig.backends.generation``):
 All backends give identical states. The accounting aux differs by design:
 the kernel path evaluates every child (n_eval = P, n_hit = 0) and carries
 the cache through untouched; "ref" reports genuine evaluations and hits.
+On a batched problem every backend launches each of its kernels once per
+generation for all lanes.
 """
 from __future__ import annotations
 
 import torch
 
 from ...core import prng
-from ...core.genome import _slot_keys
 from ..backend import GENERATION_BACKENDS as BACKENDS, pick
-from ..pop_variation.ops import _VARIATION_SLOTS, parent_frame
+from ..pop_variation.ops import lane_frames
 from .kernel import pop_generation_kernel
-from .ref import pop_generation_ref, _rank_and_select
+from .ref import _rank_and_select, pop_generation_ref
 
-__all__ = ["BACKENDS", "population_generation"]
+__all__ = ["BACKENDS", "generation_lanes", "population_generation"]
 
 
-def _generation_kernel(problem, state):
-    """Megakernel path: parent gather in PyTorch, variation + fitness in
-    one launch, ranking through the ``pop_ranking`` dispatcher."""
+def _generation_kernel_lanes(problem, lanes, states):
+    """Megakernel path: parent gather in PyTorch per lane, variation +
+    fitness of every lane in one launch, ranking through the
+    ``pop_ranking`` dispatcher per lane."""
     from ...core import engine  # lazy: engine dispatches back into us
 
     cfg = problem.cfg
-    t = problem.genes
-    P = state.pop.shape[0]
-    key, k_off = prng.split(state.key)
-    a_rows, b_rows, do_rows, k_var = parent_frame(
-        k_off, state.pop, state.rank, state.crowd, problem.crossover_rate)
+    d = engine.lane_data(problem)
+    split = [prng.split(s.key) for s in states]
+    a_rows, b_rows, do_rows, keys = lane_frames(
+        torch.stack([k_off for _, k_off in split]), torch.stack([s.pop for s in states]),
+        torch.stack([s.rank for s in states]), torch.stack([s.crowd for s in states]),
+        d.crossover_rate)
+    t = d.genes
     children, child_counts = pop_generation_kernel(
-        a_rows, b_rows, do_rows, t.low, t.high, t.is_mask, t.mask_bits,
-        t.ids, _slot_keys(k_var, _VARIATION_SLOTS),
-        problem.mutation_rate_gene, problem.x_int, problem.labels,
-        spec=problem.spec, n_valid_samples=problem.n_valid_samples,
-        out_mask=problem.out_mask,
-        dev=engine.device_deltas(problem) if engine.variation_on(cfg) else None)
-    pop = torch.cat([state.pop, children], dim=0)
-    if engine.dedup_mode(cfg) != "off":
-        counts = torch.cat([state.counts, child_counts])
-    else:   # unused placeholders of the state's count shape ((P,) or (P, K))
-        counts = torch.zeros((2 * P,) + state.counts.shape[1:], dtype=torch.int32,
-                             device=pop.device)
-    c_obj, c_viol = engine.objectives(
-        problem, children, engine.counts_accuracy(problem, child_counts))
-    n_eval = torch.tensor(P, dtype=torch.int32, device=pop.device)
-    n_hit = torch.zeros((), dtype=torch.int32, device=pop.device)
-    return _rank_and_select(state, pop, counts, c_obj, c_viol, key,
-                            state.cache, n_eval, n_hit,
-                            backend=cfg.backends.ranking)
+        a_rows, b_rows, do_rows, t.low, t.high, t.is_mask, t.mask_bits, t.ids, keys,
+        d.mutation_rate_gene, d.x, d.labels, spec=problem.spec,
+        n_valid_samples=d.n_valid_samples, out_mask=d.out_mask, dev=d.deltas)
+    dedup = engine.dedup_mode(cfg) != "off"
+    out = []
+    for p, s, (key, _), ch, cc in zip(lanes, states, split, children, child_counts):
+        P = s.pop.shape[0]
+        pop = torch.cat([s.pop, ch], dim=0)
+        if dedup:
+            counts = torch.cat([s.counts, cc])
+        else:   # unused placeholders of the state's count shape ((P,) or (P, K))
+            counts = torch.zeros((2 * P,) + s.counts.shape[1:], dtype=torch.int32,
+                                 device=pop.device)
+        c_obj, c_viol = engine.objectives(p, ch, engine.counts_accuracy(p, cc))
+        n_eval = torch.tensor(P, dtype=torch.int32, device=pop.device)
+        n_hit = torch.zeros((), dtype=torch.int32, device=pop.device)
+        out.append(_rank_and_select(s, pop, counts, c_obj, c_viol, key, s.cache,
+                                    n_eval, n_hit, backend=cfg.backends.ranking))
+    return [o[0] for o in out], [o[1] for o in out]
+
+
+def generation_lanes(problem, lanes, states, *, backend=None):
+    """One generation of every lane of ``problem`` (``lanes``: its single
+    problems, ``states``: one GAState each) → (new states, auxes), lists
+    with one entry per lane. ``backend`` overrides
+    ``problem.cfg.backends.generation``."""
+    if backend is None:
+        backend = problem.cfg.backends.generation
+    backend = pick("generation", backend, problem.device)
+    if backend in ("ref", "phases"):
+        return pop_generation_ref(problem, lanes, states, use_cache=backend == "ref")
+    return _generation_kernel_lanes(problem, lanes, states)
 
 
 def population_generation(problem, state, *, backend=None):
     """(Problem, GAState) → (new GAState, aux) — ONE (μ+λ) generation;
-    aux = (best_err, best_area, n_eval, n_hit). ``backend`` overrides
+    aux = (best_err, best_area, n_eval, n_hit), each with the lane axis on
+    a batched problem. ``backend`` overrides
     ``problem.cfg.backends.generation``."""
-    if backend is None:
-        backend = problem.cfg.backends.generation
-    backend = pick("generation", backend, state.pop.device)
-    if backend == "ref":
-        return pop_generation_ref(problem, state, use_cache=True)
-    if backend == "phases":
-        return pop_generation_ref(problem, state, use_cache=False)
-    return _generation_kernel(problem, state)
+    from ...core import engine
+
+    new, aux = generation_lanes(problem, problem.lanes(),
+                                engine.split_state(problem, state), backend=backend)
+    return engine.join_lanes(problem, new, aux)

@@ -7,6 +7,11 @@ cross-generation :class:`~repro_torch.core.dedup.EvalCache`;
 ``use_cache=False`` (the "phases" backend) is the per-phase chain with
 within-generation dedup only and the cache carried through untouched.
 Cached values are exact integer counts, so both give identical states.
+
+Over the lanes of a batched problem the variation and the fitness are each
+one dispatch for all lanes (one launch of each kernel on the card); the
+tournament, the dedup packing, the objectives and the ranking run lane by
+lane.
 """
 from __future__ import annotations
 
@@ -14,7 +19,6 @@ import dataclasses
 
 import torch
 
-from ...core.dedup import dedup_eval
 from ..pop_ranking import rank_select_rerank
 from ..pop_variation import population_variation
 
@@ -35,39 +39,49 @@ def _rank_and_select(state, pop, counts, c_obj, c_viol, key, cache,
     return new, aux
 
 
-def pop_generation_ref(problem, state, use_cache: bool = True):
-    """One generation → (new_state, (best_err, best_area, n_eval, n_hit))."""
+def pop_generation_ref(problem, lanes, states, use_cache: bool = True):
+    """One generation of every lane of ``problem`` (``lanes``: its single
+    problems, ``states``: one GAState each; one of each for a single
+    problem) → (new states, auxes), one entry per lane; aux = (best_err,
+    best_area, n_eval, n_hit)."""
     from ...core import engine, prng  # lazy: engine dispatches back into us
 
     cfg = problem.cfg
-    P = state.pop.shape[0]
-    key, k_off = prng.split(state.key)
+    d = engine.lane_data(problem)
+    split = [prng.split(s.key) for s in states]
     children = population_variation(
-        k_off, state.pop, state.rank, state.crowd, genes=problem.genes,
-        pc=problem.crossover_rate, pm=problem.mutation_rate_gene,
+        torch.stack([k_off for _, k_off in split]), torch.stack([s.pop for s in states]),
+        torch.stack([s.rank for s in states]), torch.stack([s.crowd for s in states]),
+        genes=d.genes, pc=d.crossover_rate, pm=d.mutation_rate_gene,
         backend=cfg.backends.variation)
-    pop = torch.cat([state.pop, children], dim=0)
+    pops = [torch.cat([s.pop, ch], dim=0) for s, ch in zip(states, children)]
 
     mode = engine.dedup_mode(cfg)
-    cache = state.cache
-    n_hit = torch.zeros((), dtype=torch.int32, device=pop.device)
-    eval_fn = lambda rows, n: engine.population_counts(problem, rows, n)
-    if mode == "cache" and use_cache and cache is not None:
-        counts, n_eval, n_hit, cache = dedup_eval(
-            eval_fn, pop, known=state.counts, gene_mask=problem.genes.valid,
-            cache=cache, gen=state.gen + 1, ids=problem.genes.ids)
-        c_obj, c_viol = engine.objectives(
-            problem, children, engine.counts_accuracy(problem, counts[P:]))
+    L = len(states)
+    dev = problem.device
+    caches = [s.cache for s in states]
+    n_hits = [torch.zeros((), dtype=torch.int32, device=dev)] * L
+    known = [s.counts for s in states]
+    if mode == "cache" and use_cache and caches[0] is not None:
+        res = engine.dedup_lanes(problem, lanes, pops, known=known, cache=caches,
+                                 gen=[s.gen + 1 for s in states])
+        counts, n_evals, n_hits, caches = map(list, zip(*res))
     elif mode != "off":
-        counts, n_eval = dedup_eval(
-            eval_fn, pop, known=state.counts, gene_mask=problem.genes.valid,
-            ids=problem.genes.ids)
-        c_obj, c_viol = engine.objectives(
-            problem, children, engine.counts_accuracy(problem, counts[P:]))
+        counts, n_evals = map(list, zip(*engine.dedup_lanes(problem, lanes, pops,
+                                                            known=known)))
+    if mode != "off":
+        P = states[0].pop.shape[0]
+        scored = [engine.objectives(p, ch, engine.counts_accuracy(p, c[P:]))
+                  for p, ch, c in zip(lanes, children, counts)]
     else:   # unused placeholders of the state's count shape ((P,) or (P, K))
-        counts = torch.zeros((2 * P,) + state.counts.shape[1:], dtype=torch.int32,
-                             device=pop.device)
-        c_obj, c_viol = engine.fitness(problem, children)
-        n_eval = torch.tensor(P, dtype=torch.int32, device=pop.device)
-    return _rank_and_select(state, pop, counts, c_obj, c_viol, key, cache,
-                            n_eval, n_hit, backend=cfg.backends.ranking)
+        counts = [torch.zeros((pop.shape[0],) + s.counts.shape[1:], dtype=torch.int32,
+                              device=dev) for s, pop in zip(states, pops)]
+        scored = engine.fitness_lanes(problem, lanes, list(children))
+        n_evals = [torch.tensor(ch.shape[0], dtype=torch.int32, device=dev)
+                   for ch in children]
+    out = [_rank_and_select(s, pop, c, obj, viol, key, cache, n_eval, n_hit,
+                            backend=cfg.backends.ranking)
+           for s, pop, c, (obj, viol), (key, _), cache, n_eval, n_hit
+           in zip(states, pops, counts, scored, split, caches, n_evals, n_hits)]
+    return [o[0] for o in out], [o[1] for o in out]
+

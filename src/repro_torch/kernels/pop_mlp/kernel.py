@@ -9,10 +9,14 @@ over K device instances given by a (K, G) delta table → (P, K) counts.
 The source's header says what bounds them on the card and how they are
 laid out.
 
+Both take a leading lane axis on every operand: L independent problems of
+one layout scored in one launch, the lane on the grid's z axis (a single
+problem is the case L = 1).
+
 On a CUDA tensor a wrapper checks its inputs and launches its kernel on
 the current stream; on a CPU tensor it runs the plain version
-(``ref.pop_mlp_correct_tiled``, ``ref.pop_mlp_correct_mc``). It never
-falls back from one to the other.
+(``ref.pop_mlp_correct_tiled``, ``ref.pop_mlp_correct_mc``, per lane). It
+never falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
-from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_plain
+from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_tiled
 from .ref import pop_mlp_correct_tiled
 
 MAX_LAYERS = 4   # csrc/common.cuh kMaxLayers
@@ -43,15 +47,52 @@ def net_desc(spec: GenomeSpec) -> list[int]:
     return d
 
 
-def out_mask_or_ones(out_mask, n_out: int, device) -> torch.Tensor:
+def out_mask_or_ones(out_mask, shape: tuple, device) -> torch.Tensor:
     if out_mask is None:
-        return torch.ones(n_out, dtype=torch.int32, device=device)
+        return torch.ones(shape, dtype=torch.int32, device=device)
     return out_mask.to(device=device, dtype=torch.int32).contiguous()
 
 
-# The kernel's plain PyTorch version: same counts, rows past n_valid_rows 0,
-# samples past n_valid_samples not counted.
-pop_mlp_correct_plain = pop_mlp_correct_tiled
+def _lane_plain(fn, pop, x_int, labels, n_valid_samples, out_mask, **kw):
+    """``fn`` per lane of lane-axis operands, stacked (a single problem's
+    operands go straight through)."""
+    if pop.dim() == 2:
+        return fn(pop, x_int, labels, n_valid_samples=n_valid_samples,
+                  out_mask=out_mask, **kw)
+    lane = _cuda.lane_item
+    return torch.stack([fn(pop[i], x_int[i], labels[i],
+                           n_valid_samples=lane(n_valid_samples, i),
+                           out_mask=lane(out_mask, i),
+                           **{k: lane(v, i) for k, v in kw.items()})
+                        for i in range(pop.shape[0])])
+
+
+def pop_mlp_correct_plain(pop, x_int, labels, *, spec: GenomeSpec, n_valid_rows=None,
+                          n_valid_samples=None, out_mask=None):
+    """The kernel's plain PyTorch version (``ref.pop_mlp_correct_tiled``,
+    per lane): same counts, rows past n_valid_rows 0, samples past
+    n_valid_samples not counted."""
+    return _lane_plain(pop_mlp_correct_tiled, pop, x_int, labels, n_valid_samples,
+                       out_mask, spec=spec, n_valid_rows=n_valid_rows)
+
+
+def pop_mlp_correct_mc_plain(pop, x_int, labels, *, spec: GenomeSpec, dev, gene_high,
+                             n_valid_rows=None, n_valid_samples=None, out_mask=None):
+    """``pop_mlp_correct_mc``'s plain PyTorch version (per lane)."""
+    return _lane_plain(pop_mlp_correct_mc_tiled, pop, x_int, labels, n_valid_samples,
+                       out_mask, spec=spec, dev=dev, gene_high=gene_high,
+                       n_valid_rows=n_valid_rows)
+
+
+def as_lanes(pop, x_int, labels, out_mask, dev=None, gene_high=None):
+    """A single problem's operands with a leading lane axis of 1 (views);
+    lane-axis operands as they are. → (single, pop, x_int, labels,
+    out_mask, dev, gene_high)"""
+    if pop.dim() == 3:
+        return False, pop, x_int, labels, out_mask, dev, gene_high
+    one = lambda t: None if t is None else t[None]
+    return (True, pop[None], x_int[None], labels[None], one(out_mask), one(dev),
+            one(gene_high))
 
 
 def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
@@ -61,38 +102,40 @@ def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
     """The checked launch of the kernel on CUDA tensors, and the zeroed
     counts it adds into (arguments as :func:`pop_mlp_correct`; P > 0).
     With ``dev`` and ``gene_high`` it is ``pop_mlp_correct_mc``'s launch
-    and the counts are (P, K)."""
+    and the counts are (P, K), or (L, P, K) over lanes."""
     device = pop.device
     if device.type != "cuda":
         raise ValueError(f"pop_mlp_correct launches on CUDA tensors, got {device}")
-    P, G = pop.shape
-    S, n_in = x_int.shape
+    single, pop, x_int, labels, out_mask, dev, gene_high = as_lanes(
+        pop, x_int, labels, out_mask, dev, gene_high)
+    L, P, G = pop.shape
+    S, n_in = x_int.shape[1:]
     n_out = spec.topo.sizes[-1]
     if G != spec.n_genes or n_in != spec.topo.sizes[0]:
         raise ValueError(f"shapes pop {tuple(pop.shape)} / x {tuple(x_int.shape)} "
                          f"do not fit topology {spec.topo.sizes}")
     desc = _cuda.host_ints(net_desc(spec))
-    _cuda.check(pop, "pop", torch.int32, (P, G), device)
-    _cuda.check(x_int, "x_int", torch.int32, (S, n_in), device)
-    _cuda.check(labels, "labels", torch.int32, (S,), device)
-    om = out_mask_or_ones(out_mask, n_out, device)
-    _cuda.check(om, "out_mask", torch.int32, (n_out,), device)
+    _cuda.check(pop, "pop", torch.int32, (L, P, G), device)
+    _cuda.check(x_int, "x_int", torch.int32, (L, S, n_in), device)
+    _cuda.check(labels, "labels", torch.int32, (L, S), device)
+    om = out_mask_or_ones(out_mask, (L, n_out), device)
+    _cuda.check(om, "out_mask", torch.int32, (L, n_out), device)
     rows = _cuda.device_scalar(n_valid_rows, P, device)
-    samp = _cuda.device_scalar(n_valid_samples, S, device)
-    head = (pop.data_ptr(), P, G, x_int.data_ptr(), labels.data_ptr(), S, n_in,
+    samp = _cuda.lane_bounds(n_valid_samples, S, L, device)
+    head = (pop.data_ptr(), L, P, G, x_int.data_ptr(), labels.data_ptr(), S, n_in,
             rows.data_ptr(), samp.data_ptr(), om.data_ptr())
     keep = (pop, x_int, labels, rows, samp, om, desc)
     if dev is None:
-        counts = torch.zeros(P, dtype=torch.int32, device=device)
-        return (_cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch",
-                             (*head, desc, counts.data_ptr()), (*keep, counts)),
-                counts)
-    d, hi = check_deltas(dev, gene_high, G, device)
-    counts = torch.zeros((P, d.shape[0]), dtype=torch.int32, device=device)
-    return (_cuda.Launch("pop_mlp_correct_mc", "pop_mlp_correct_mc_launch",
-                         (*head, d.data_ptr(), hi.data_ptr(), d.shape[0], desc,
-                          counts.data_ptr()), (*keep, d, hi, counts)),
-            counts)
+        counts = torch.zeros((L, P), dtype=torch.int32, device=device)
+        launch = _cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch",
+                              (*head, desc, counts.data_ptr()), (*keep, counts))
+    else:
+        d, hi = check_deltas(dev, gene_high, L, G, device)
+        counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=device)
+        launch = _cuda.Launch("pop_mlp_correct_mc", "pop_mlp_correct_mc_launch",
+                              (*head, d.data_ptr(), hi.data_ptr(), d.shape[1], desc,
+                               counts.data_ptr()), (*keep, d, hi, counts))
+    return launch, counts[0] if single else counts
 
 
 def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
@@ -105,7 +148,12 @@ def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
     computed on the card costs no synchronisation). Rows at or past
     ``n_valid_rows`` come back 0; samples at or past ``n_valid_samples``
     are not counted. ``out_mask`` ((n_out,)): zero marks an invalid
-    output column. Labels of −1 never match."""
+    output column. Labels of −1 never match.
+
+    Lanes: pop (L, P, G), x_int (L, S, n_in), labels (L, S), out_mask
+    (L, n_out) and n_valid_samples () or (L,) → (L, P) counts in one
+    launch (the lane is the grid's z axis); ``n_valid_rows`` bounds every
+    lane."""
     if pop.device.type == "cpu":
         return pop_mlp_correct_plain(pop, x_int, labels, spec=spec,
                                      n_valid_rows=n_valid_rows,
@@ -115,25 +163,25 @@ def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
                                           n_valid_rows=n_valid_rows,
                                           n_valid_samples=n_valid_samples,
                                           out_mask=out_mask)
-    if pop.shape[0]:
+    if pop.shape[-2]:
         launch()
     return counts
 
 
-def check_deltas(dev, gene_high, G: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (K, G) delta table and the (G,) gene bounds as contiguous int32
-    tensors on ``device`` (K >= 1), checked."""
-    if dev.dim() != 2 or dev.shape[0] < 1:
-        raise ValueError(f"dev must be a (K, G) delta table with K >= 1, got "
+def check_deltas(dev, gene_high, L: int, G: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (L, K, G) delta tables and the (L, G) gene bounds as contiguous
+    int32 tensors on ``device`` (K >= 1), checked."""
+    if dev.dim() != 3 or dev.shape[1] < 1:
+        raise ValueError(f"dev must be an (L, K, G) delta table with K >= 1, got "
                          f"shape {tuple(dev.shape)}")
     if gene_high is None:
         raise ValueError("dev needs gene_high (per-gene exclusive upper bounds)")
     d = dev.to(dtype=torch.int32).contiguous()
     hi = gene_high.to(dtype=torch.int32).contiguous()
-    _cuda.check(d, "dev", torch.int32, (dev.shape[0], G), device)
-    _cuda.check(hi, "gene_high", torch.int32, (G,), device)
-    _cuda.check_smem(mc_smem_bytes(G, d.shape[0]), device,
-                     f"a device-instance kernel at G={G}, K={d.shape[0]}")
+    _cuda.check(d, "dev", torch.int32, (L, dev.shape[1], G), device)
+    _cuda.check(hi, "gene_high", torch.int32, (L, G), device)
+    _cuda.check_smem(mc_smem_bytes(G, d.shape[1]), device,
+                     f"a device-instance kernel at G={G}, K={d.shape[1]}")
     return d, hi
 
 
@@ -153,7 +201,8 @@ def pop_mlp_correct_mc(pop, x_int, labels, dev, gene_high, *,
     The deltas must be zero off the exponent genes, as
     ``engine.device_deltas`` makes them. Bounds and ``out_mask`` as
     :func:`pop_mlp_correct`; a row past ``n_valid_rows`` is 0 in every
-    column."""
+    column. Lanes as :func:`pop_mlp_correct`, with dev (L, K, G) and
+    gene_high (L, G) → (L, P, K)."""
     if pop.device.type == "cpu":
         return pop_mlp_correct_mc_plain(pop, x_int, labels, spec=spec, dev=dev,
                                         gene_high=gene_high,
@@ -165,6 +214,6 @@ def pop_mlp_correct_mc(pop, x_int, labels, dev, gene_high, *,
                                           n_valid_samples=n_valid_samples,
                                           out_mask=out_mask, dev=dev,
                                           gene_high=gene_high)
-    if pop.shape[0]:
+    if pop.shape[-2]:
         launch()
     return counts

@@ -20,6 +20,9 @@ kernel ``pop_mlp_correct_mc`` ("kernel") or its tiled plain version
 """
 from __future__ import annotations
 
+import torch
+
+from .. import _cuda
 from ..backend import FITNESS_BACKENDS as BACKENDS, pick
 from .kernel import pop_mlp_correct, pop_mlp_correct_mc
 from .ref import pop_mlp_correct_ref, pop_mlp_correct_tiled
@@ -33,8 +36,21 @@ def population_correct(pop, x_int, labels, *, spec, backend=None,
                        n_valid_rows=None, n_valid_samples=None,
                        out_mask=None, dev=None, gene_high=None):
     """(P, G) × (S, n_in) × (S,) → (P,) int32 correct counts, or (P, K)
-    with ``dev``."""
+    with ``dev``.
+
+    With a leading lane axis on every operand — pop (L, P, G), x_int
+    (L, S, n_in), labels (L, S), n_valid_samples (L,), out_mask (L, n_out),
+    dev (L, K, G), gene_high (L, G) — each lane is scored on its own data
+    → (L, P) or (L, P, K); ``n_valid_rows`` bounds every lane. The
+    "kernel" backend scores all lanes in one launch."""
     backend = pick("fitness", backend, pop.device)
+    if pop.dim() == 3 and backend != "kernel":
+        at = _cuda.lane_item
+        return torch.stack([population_correct(
+            pop[i], x_int[i], labels[i], spec=spec, backend=backend, pop_tile=pop_tile,
+            sample_tile=sample_tile, n_valid_rows=n_valid_rows,
+            n_valid_samples=at(n_valid_samples, i), out_mask=at(out_mask, i),
+            dev=at(dev, i), gene_high=at(gene_high, i)) for i in range(pop.shape[0])])
     if dev is not None:
         if backend == "jnp":
             raise ValueError("the 'jnp' fitness oracle has no "

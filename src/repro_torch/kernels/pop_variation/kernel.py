@@ -12,6 +12,9 @@ P/2`` is pair ``p``, row ``P/2 + p`` the same pair with the roles flipped.
 The swap draw belongs to the pair, so its counter row is ``p mod P/2``;
 the mutation slots use the child row ``p``.
 
+Every operand may carry a leading lane axis: L independent populations
+varied in one launch (a single one is the case L = 1).
+
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`pop_variation_plain`, the same math in PyTorch.
 """
@@ -29,10 +32,8 @@ def _slot_uniform(k1, k2, gid, row):
     return bits_to_open01(torch.where(row % 2 == 1, y2, y1))
 
 
-def pop_variation_plain(a_rows, b_rows, do_rows, table_low, table_high,
-                        table_is_mask, table_mask_bits, table_ids, slot_keys,
-                        pm_gene):
-    """The kernel's plain PyTorch version (same arguments)."""
+def _variation_one(a_rows, b_rows, do_rows, table_low, table_high, table_is_mask,
+                   table_mask_bits, table_ids, slot_keys, pm_gene):
     P, G = a_rows.shape
     half = P // 2
     dev = a_rows.device
@@ -55,6 +56,14 @@ def pop_variation_plain(a_rows, b_rows, do_rows, table_low, table_high,
     return torch.minimum(torch.maximum(child, lo), hi - 1)
 
 
+def pop_variation_plain(*args):
+    """The kernel's plain PyTorch version (same arguments, lanes too)."""
+    if args[0].dim() == 2:
+        return _variation_one(*args)
+    return torch.stack([_variation_one(*(a[i] for a in args))
+                        for i in range(args[0].shape[0])])
+
+
 def uint32_bits(words: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2**32) → int32 tensor of the same bits (what the
     kernels read through a uint32_t pointer)."""
@@ -71,25 +80,34 @@ def variation_operands(a_rows, b_rows, do_rows, table_low, table_high,
                        table_is_mask, table_mask_bits, table_ids, slot_keys,
                        pm_gene):
     """Checked, contiguous int32/float32 operands of the variation kernels
-    (shared with ``pop_generation``)."""
+    with a leading lane axis (shared with ``pop_generation``) →
+    (single, operands): a single problem's operands gain a lane axis of 1."""
+    single = a_rows.dim() == 2
+    if single:
+        a_rows, b_rows, do_rows, table_low, table_high, table_is_mask, \
+            table_mask_bits, table_ids, slot_keys, pm_gene = (
+                t[None] for t in (a_rows, b_rows, do_rows, table_low, table_high,
+                                  table_is_mask, table_mask_bits, table_ids, slot_keys,
+                                  torch.as_tensor(pm_gene)))
     dev = a_rows.device
-    P, G = a_rows.shape
+    L, P, G = a_rows.shape
     if P % 2:
         raise ValueError(f"variation needs an even population, got {P}")
-    if P // 2 > 65535:
-        raise ValueError(f"population {P} exceeds the kernel's grid (2 * 65535)")
+    if P // 2 > 65535 or L > 65535:
+        raise ValueError(f"population {P} x {L} lanes exceeds the kernel's grid "
+                         "(2 * 65535 rows, 65535 lanes)")
     i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
     ops = dict(a_rows=a_rows, b_rows=b_rows, do_rows=i32(do_rows),
                low=i32(table_low), high=i32(table_high),
                is_mask=i32(table_is_mask), mask_bits=i32(table_mask_bits),
                ids=i32(table_ids), keys=uint32_bits(slot_keys.to(dev)),
-               pm=pm_gene.to(device=dev, dtype=torch.float32).reshape(1).contiguous())
-    for name, shape in (("a_rows", (P, G)), ("b_rows", (P, G)), ("do_rows", (P,)),
-                        ("low", (G,)), ("high", (G,)), ("is_mask", (G,)),
-                        ("mask_bits", (G,)), ("ids", (G,)), ("keys", (3, 2))):
+               pm=pm_gene.to(device=dev, dtype=torch.float32).reshape(-1).contiguous())
+    for name, shape in (("a_rows", (L, P, G)), ("b_rows", (L, P, G)), ("do_rows", (L, P)),
+                        ("low", (L, G)), ("high", (L, G)), ("is_mask", (L, G)),
+                        ("mask_bits", (L, G)), ("ids", (L, G)), ("keys", (L, 3, 2))):
         _cuda.check(ops[name], name, torch.int32, shape, dev)
-    _cuda.check(ops["pm"], "pm_gene", torch.float32, (1,), dev)
-    return ops
+    _cuda.check(ops["pm"], "pm_gene", torch.float32, (L,), dev)
+    return single, ops
 
 
 def pop_variation_call(a_rows, b_rows, do_rows, table_low, table_high,
@@ -100,14 +118,14 @@ def pop_variation_call(a_rows, b_rows, do_rows, table_low, table_high,
     if a_rows.device.type != "cuda":
         raise ValueError(f"pop_variation_kernel launches on CUDA tensors, "
                          f"got {a_rows.device}")
-    P, G = a_rows.shape
-    o = variation_operands(a_rows, b_rows, do_rows, table_low, table_high,
-                           table_is_mask, table_mask_bits, table_ids,
-                           slot_keys, pm_gene)
-    children = torch.empty((P, G), dtype=torch.int32, device=a_rows.device)
-    args = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), P, G, children.data_ptr())
+    single, o = variation_operands(a_rows, b_rows, do_rows, table_low, table_high,
+                                   table_is_mask, table_mask_bits, table_ids,
+                                   slot_keys, pm_gene)
+    L, P, G = o["a_rows"].shape
+    children = torch.empty((L, P, G), dtype=torch.int32, device=a_rows.device)
+    args = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), L, P, G, children.data_ptr())
     return (_cuda.Launch("pop_variation_kernel", "pop_variation_launch", args,
-                         (*o.values(), children)), children)
+                         (*o.values(), children)), children[0] if single else children)
 
 
 def pop_variation_kernel(a_rows, b_rows, do_rows, table_low, table_high,
@@ -121,6 +139,10 @@ def pop_variation_kernel(a_rows, b_rows, do_rows, table_low, table_high,
     slot_keys: (3, 2) uint32 words (int64) — ``genome._slot_keys`` of the
         gene-draw key over the swap, mutation-gate and mutation-value slots.
     pm_gene: () float32 per-gene mutation probability.
+
+    Lanes: every operand with a leading lane axis — parents (L, P, G),
+    gates (L, P), tables (L, G), keys (L, 3, 2), pm_gene (L,) → (L, P, G)
+    children in one launch (the lane is the grid's z axis).
     """
     if a_rows.device.type == "cpu":
         return pop_variation_plain(a_rows, b_rows, do_rows, table_low,

@@ -48,6 +48,17 @@ def parent_frame(key, pop, rank, crowd, pc):
             torch.cat([do_cx, do_cx]), k_var)
 
 
+def lane_frames(key, pop, rank, crowd, pc):
+    """:func:`parent_frame` of every lane → the stacked kernel operands
+    (a_rows (L, P, G), b_rows (L, P, G), do_rows (L, P), slot keys (L, 3,
+    2)) of one launch for all lanes; inputs carry the lane axis."""
+    frames = [parent_frame(key[i], pop[i], rank[i], crowd[i], pc[i])
+              for i in range(pop.shape[0])]
+    a_rows, b_rows, do_rows = (torch.stack([f[j] for f in frames]) for j in range(3))
+    return a_rows, b_rows, do_rows, torch.stack([_slot_keys(f[3], _VARIATION_SLOTS)
+                                                 for f in frames])
+
+
 def population_variation(key, pop, rank, crowd, *, genes, pc, pm,
                          backend=None):
     """(P, G) population + ranking → (P, G) int32 children.
@@ -55,12 +66,24 @@ def population_variation(key, pop, rank, crowd, *, genes, pc, pm,
     key: the generation's offspring key (split via ``variation_keys``).
     pc / pm: () float32 crossover and per-gene mutation probabilities.
     genes: ``GeneTable`` (or a ``GenomeSpec``, whose identity table is used).
-    """
-    t = genes.table(pop.device) if isinstance(genes, GenomeSpec) else genes
+
+    With a leading lane axis — key (L, 2), pop (L, P, G), rank/crowd (L, P),
+    a GeneTable of (L, G) leaves, pc/pm (L,) — every lane varies on its
+    own draws → (L, P, G); the "kernel" backend makes all lanes' children
+    in one launch."""
     backend = pick("variation", backend, pop.device)
-    P = pop.shape[0]
+    P = pop.shape[-2]
     if P % 2:
         raise ValueError(f"variation needs an even population, got {P}")
+    if pop.dim() == 3:
+        if backend != "kernel":
+            return torch.stack([population_variation(
+                key[i], pop[i], rank[i], crowd[i], genes=genes.lane(i), pc=pc[i],
+                pm=pm[i], backend=backend) for i in range(pop.shape[0])])
+        a_rows, b_rows, do_rows, keys = lane_frames(key, pop, rank, crowd, pc)
+        return pop_variation_kernel(a_rows, b_rows, do_rows, genes.low, genes.high,
+                                    genes.is_mask, genes.mask_bits, genes.ids, keys, pm)
+    t = genes.table(pop.device) if isinstance(genes, GenomeSpec) else genes
     if backend == "ops":
         return make_offspring(key, pop, rank, crowd, t, pc, pm)
     a_rows, b_rows, do_rows, k_var = parent_frame(key, pop, rank, crowd, pc)

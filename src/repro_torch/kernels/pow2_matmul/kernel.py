@@ -28,14 +28,6 @@ pow2_matmul_plain = pow2_matmul_ref
 X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_blocks(M: int, N: int, K: int, bm: int, bn: int, bk: int) -> None:
-    """The reference's block check: ``min(block, dim)`` divides each dim."""
-    bm, bn, bk = min(bm, M), min(bn, N), min(bk, K)
-    if min(bm, bn, bk) < 1 or M % bm or N % bn or K % bk:
-        raise ValueError(f"blocks (bm, bn, bk) = {(bm, bn, bk)} must divide "
-                         f"(M, N, K) = {(M, N, K)}")
-
-
 def pow2_matmul_call(x, w_packed) -> tuple[_cuda.Launch, torch.Tensor]:
     """The checked launch of the kernel on CUDA tensors, and the (M, N)
     float32 output it writes."""
@@ -54,17 +46,15 @@ def pow2_matmul_call(x, w_packed) -> tuple[_cuda.Launch, torch.Tensor]:
             out)
 
 
-def pow2_matmul(x: torch.Tensor, w_packed: torch.Tensor, *, bm: int = 128,
-                bn: int = 512, bk: int = 128) -> torch.Tensor:
+def pow2_matmul(x: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     """x: (M, K) float32/bfloat16 × packed (K, N) uint8 → (M, N) float32.
 
-    The block sizes are checked as the reference checks them; the CUDA
-    kernel chooses its own tiling and masks ragged edges."""
+    The reference's block sizes (``bm``, ``bn``, ``bk``, which must divide
+    the shapes there) are not taken: the CUDA kernel chooses its own tiling
+    and masks ragged edges, so every (M, K, N) runs."""
     if x.dim() != 2 or w_packed.dim() != 2 or x.shape[1] != w_packed.shape[0]:
         raise ValueError(f"x {tuple(x.shape)} and w_packed {tuple(w_packed.shape)} "
                          f"are not (M, K) and (K, N)")
-    (M, K), N = x.shape, w_packed.shape[1]
-    check_blocks(M, N, K, bm, bn, bk)
     if x.device.type == "cpu":
         return pow2_matmul_plain(x, w_packed)
     launch, out = pow2_matmul_call(x, w_packed)

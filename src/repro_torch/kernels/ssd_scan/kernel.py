@@ -19,13 +19,6 @@ from .ref import ssd_state_scan_ref
 ssd_state_scan_plain = ssd_state_scan_ref
 
 
-def check_heads_per_block(H: int, bh: int) -> None:
-    """The reference's block check (``bh = min(bh, H)`` must divide H)."""
-    bh = min(bh, H)
-    if bh < 1 or H % bh:
-        raise ValueError(f"heads per block {bh} must divide the {H} heads")
-
-
 def ssd_state_scan_call(state_c, chunk_decay) -> tuple[_cuda.Launch, torch.Tensor]:
     """The checked launch of the kernel on CUDA tensors, and the (b, nc, H,
     P, N) float32 output it writes."""
@@ -43,14 +36,13 @@ def ssd_state_scan_call(state_c, chunk_decay) -> tuple[_cuda.Launch, torch.Tenso
                          (state_c, chunk_decay, out)), out)
 
 
-def ssd_state_scan(state_c: torch.Tensor, chunk_decay: torch.Tensor, *,
-                   bh: int = 8) -> torch.Tensor:
+def ssd_state_scan(state_c: torch.Tensor, chunk_decay: torch.Tensor) -> torch.Tensor:
     """state_c: (b, nc, H, P, N) float32; chunk_decay: (b, nc, H) float32 →
     h_prev (b, nc, H, P, N), the state entering each chunk.
 
-    ``bh`` (heads per block of the reference's grid) is checked as the
-    reference checks it; the CUDA kernel chooses its own tiling."""
-    check_heads_per_block(state_c.shape[2], bh)
+    The reference's ``bh`` (heads per block, which must divide H there) is
+    not taken: the CUDA kernel runs one thread per state element for any
+    H."""
     if state_c.device.type == "cpu":
         return ssd_state_scan_plain(state_c, chunk_decay)
     launch, out = ssd_state_scan_call(state_c, chunk_decay)

@@ -1,6 +1,8 @@
 """Each CUDA kernel against its plain version on the card (marker
 ``cuda``): pendigits-like shapes, row/sample bounds, device-variation
-delta tables with K = 1 and 6, exact equality; the LM-side kernels at
+delta tables with K = 1 and 6, exact equality; the lane axis of the GA
+kernels at L = 1 and 3 (unequal per-lane sample counts, a shared row
+bound), one launch for all lanes; the probe kernel and its memo; the LM-side kernels at
 small and ragged shapes (the state scan bit for bit, the pow2 product
 within 1e-4 of the plain output's largest magnitude, attention within
 3e-4 in float32 and ``flash_attention_bf16_limit`` in bfloat16). The
@@ -137,6 +139,141 @@ def test_wrappers_reject_bad_inputs(card):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, 200, card), high, spec=spec)
 
 
+def _lanes(dev, L, P=40, S=1100, seed=0):
+    """L lanes of one layout with their own genomes, samples, labels (−1
+    past each lane's own, unequal sample count), output masks, delta
+    tables, parent frames, gene tables (own draw ids), keys and rates."""
+    spec = GenomeSpec(MLPTopology((16, 5, 10)))
+    rng = np.random.default_rng(seed)
+    t = spec.table(dev)
+    pop = torch.stack([random_population(prng.PRNGKey(seed + i, dev), t, 2 * P)
+                       for i in range(L)])
+    x = torch.as_tensor(rng.integers(0, 16, (L, S, 16)), dtype=torch.int32, device=dev)
+    y = torch.as_tensor(rng.integers(0, 10, (L, S)), dtype=torch.int32, device=dev)
+    samp = torch.as_tensor(rng.integers(S // 4, S + 1, L), dtype=torch.int32, device=dev)
+    for i in range(L):
+        y[i, int(samp[i]):] = -1
+    om = torch.ones((L, 10), dtype=torch.int32, device=dev)
+    om[:, 9] = torch.as_tensor(rng.integers(0, 2, L), dtype=torch.int32, device=dev)
+    deltas = torch.stack([_deltas(spec, 4, dev, seed=seed + i) for i in range(L)])
+    ids = torch.stack([torch.as_tensor(rng.permutation(spec.n_genes).astype(np.int32),
+                                       device=dev) for _ in range(L)])
+    tables = [a.expand(L, -1).contiguous() for a in (t.low, t.high, t.is_mask, t.mask_bits)]
+    keys = torch.stack([_slot_keys(prng.PRNGKey(seed + 7 * i, dev), (0, 1, 2))
+                        for i in range(L)])
+    var = (pop[:, :P].contiguous(), pop[:, P:].contiguous(),
+           torch.as_tensor(rng.random((L, P)) < 0.7, device=dev), *tables, ids, keys,
+           torch.as_tensor(rng.random(L) * 0.4, dtype=torch.float32, device=dev))
+    return spec, pop, x, y, samp, om, deltas, var
+
+
+@pytest.mark.parametrize("L", [1, 3])
+def test_lane_axis_kernels_equal_plain(card, L):
+    """Each lane-axis kernel (one launch for all lanes) against its plain
+    version, with unequal per-lane sample counts and a shared row bound
+    below P."""
+    spec, pop, x, y, samp, om, deltas, var = _lanes(card, L, seed=L)
+    rows = torch.tensor(53, dtype=torch.int32, device=card)
+    hi = var[4]
+    kw = dict(spec=spec, n_valid_samples=samp, out_mask=om)
+    _cuda.reset_launches()
+    got = pop_mlp_correct(pop, x, y, n_valid_rows=rows, **kw)
+    got_mc = pop_mlp_correct_mc(pop, x, y, deltas, hi, n_valid_rows=rows, **kw)
+    ch = pop_variation_kernel(*var)
+    ch_g, cnt_g = pop_generation_kernel(*var, x, y, **kw)
+    ch_m, cnt_m = pop_generation_kernel(*var, x, y, dev=deltas, **kw)
+    assert {k: v for k, v in _cuda.LAUNCHES.items() if v} == {
+        "pop_mlp_correct": 1, "pop_mlp_correct_mc": 1, "pop_variation_kernel": 1,
+        "pop_generation_kernel": 1, "pop_generation_kernel_mc": 1}
+    assert torch.equal(got, pop_mlp_correct_plain(pop, x, y, n_valid_rows=rows, **kw))
+    assert tuple(got.shape) == (L, 80) and (got[:, 53:] == 0).all()
+    assert torch.equal(got_mc, pop_mlp_correct_mc_plain(pop, x, y, dev=deltas, gene_high=hi,
+                                                        n_valid_rows=rows, **kw))
+    assert torch.equal(got_mc[..., 0], got)
+    assert torch.equal(ch, pop_variation_plain(*var))
+    ch_p, cnt_p = pop_generation_plain(*var, x, y, **kw)
+    assert torch.equal(ch_g, ch_p) and torch.equal(cnt_g, cnt_p)
+    ch_q, cnt_q = pop_generation_plain(*var, x, y, dev=deltas, **kw)
+    assert torch.equal(ch_m, ch_q) and torch.equal(cnt_m, cnt_q) and torch.equal(ch_m, ch)
+
+
+def test_one_lane_launch_equals_the_single_problem_launch(card):
+    """L = 1 in lane form and the single-problem form each launch their
+    kernel once and give the same results."""
+    spec, pop, x, y, samp, om, deltas, var = _lanes(card, 1, seed=5)
+    rows = torch.tensor(77, dtype=torch.int32, device=card)
+    one = [a[0] for a in var]
+    calls = {
+        "pop_mlp_correct": (
+            lambda: pop_mlp_correct(pop, x, y, spec=spec, n_valid_rows=rows,
+                                    n_valid_samples=samp, out_mask=om)[0],
+            lambda: pop_mlp_correct(pop[0], x[0], y[0], spec=spec, n_valid_rows=rows,
+                                    n_valid_samples=samp[0], out_mask=om[0])),
+        "pop_variation_kernel": (lambda: pop_variation_kernel(*var)[0],
+                                 lambda: pop_variation_kernel(*one)),
+        "pop_generation_kernel_mc": (
+            lambda: pop_generation_kernel(*var, x, y, spec=spec, dev=deltas,
+                                          n_valid_samples=samp)[1][0],
+            lambda: pop_generation_kernel(*one, x[0], y[0], spec=spec, dev=deltas[0],
+                                          n_valid_samples=samp[0])[1])}
+    for name, (lanes, single) in calls.items():
+        _cuda.reset_launches()
+        a = lanes()
+        assert _cuda.LAUNCHES[name] == 1
+        b = single()
+        assert _cuda.LAUNCHES[name] == 2 and sum(_cuda.LAUNCHES.values()) == 2
+        assert torch.equal(a, b), name
+
+
+def test_lane_wrappers_reject_shape_mismatches(card):
+    spec, pop, x, y, samp, om, deltas, var = _lanes(card, 3)
+    with pytest.raises(ValueError, match="x_int"):
+        pop_mlp_correct(pop, x[:2], y, spec=spec)
+    with pytest.raises(ValueError, match="labels"):
+        pop_mlp_correct(pop, x, y[:, :5], spec=spec)
+    with pytest.raises(ValueError, match="per-lane bound"):
+        pop_mlp_correct(pop, x, y, spec=spec, n_valid_samples=samp[:2])
+    with pytest.raises(ValueError, match="out_mask"):
+        pop_mlp_correct(pop, x, y, spec=spec, out_mask=om[0])
+    with pytest.raises(ValueError, match="dev"):
+        pop_mlp_correct_mc(pop, x, y, deltas[:2], var[4], spec=spec)
+    with pytest.raises(ValueError, match="gene_high"):
+        pop_mlp_correct_mc(pop, x, y, deltas, var[4][0], spec=spec)
+    with pytest.raises(ValueError, match="keys"):
+        pop_variation_kernel(*var[:8], var[8][:2], var[9])
+    with pytest.raises(ValueError, match="pm_gene"):
+        pop_variation_kernel(*var[:9], var[9][:1])
+    with pytest.raises(ValueError, match="x_int"):
+        pop_generation_kernel(*var, x[:1], y[:1], spec=spec)
+
+
+def test_probe_kernel_memo_and_reset(card, monkeypatch):
+    """The probe kernel adds 1 on the card; ``resolve_backends(...,
+    fallback=True)`` launches it once, downgrades nothing, and answers from
+    its memo after; a reset memo asks again."""
+    import warnings
+
+    from repro_torch.kernels import backend
+    from repro_torch.kernels.probe import PROBE_SHAPE, probe_kernel, probe_plain
+
+    x = torch.arange(8 * 128, dtype=torch.int32, device=card).reshape(PROBE_SHAPE)
+    assert torch.equal(probe_kernel(x), probe_plain(x))
+    monkeypatch.setattr(backend, "_KERNEL_OK", {})
+    monkeypatch.setattr(backend, "_WARNED", set())
+    pol = backend.BackendPolicy(fitness="kernel", variation="kernel", generation="kernel",
+                                ranking="sweep")
+    _cuda.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert backend.resolve_backends(pol, fallback=True) == pol
+        assert _cuda.LAUNCHES["probe"] == 1 and backend._KERNEL_OK == {"compiled": True}
+        assert backend.resolve_backends(pol, fallback=True) == pol
+    assert _cuda.LAUNCHES["probe"] == 1
+    monkeypatch.setattr(backend, "_KERNEL_OK", {})
+    assert backend.backend_available("fitness", "kernel")
+    assert _cuda.LAUNCHES["probe"] == 2
+
+
 @pytest.mark.parametrize("shape", [(1, 1, 1, 1, 1), (2, 3, 5, 7, 9), (2, 9, 24, 64, 128)])
 def test_ssd_scan_kernel_equals_plain(card, shape):
     g = torch.Generator(device=card).manual_seed(sum(shape))
@@ -151,7 +288,8 @@ def test_ssd_scan_kernel_equals_plain(card, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (77, 100, 130), (1, 5, 3), (256, 384, 512)])
+@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (77, 100, 130), (1, 5, 3), (256, 384, 512),
+                                   (200, 256, 384)])
 def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N):
     g = torch.Generator(device=card).manual_seed(M + K + N)
     x = torch.randn((M, K), generator=g, device=card).to(dtype)

@@ -119,12 +119,16 @@ def test_lm_op_with_use_kernel_on_cpu_tensors_raises(op):
     assert torch.equal(fn(*args, use_kernel=False), fn(*args))
 
 
-@pytest.mark.parametrize("kw,item", [(dict(generations_budget=5), "A12"),
-                                     (dict(batch_axis="runs"), "A11")],
-                         ids=["kw1-A12", "kw2-A11"])
-def test_unported_config_paths_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(generations_budget=5), NotImplementedError, "A12"),
+    # A11 (batching) is ported: its one lane axis is engine.BATCH_AXIS, and
+    # any other axis name is refused
+    (dict(batch_axis="runs"), ValueError, "ga_runs")], ids=["kw1-A12", "kw2-A11"])
+def test_unported_config_paths_raise(kw, exc, match):
+    with pytest.raises(exc, match=match):
         GAConfig(**kw)
+    if exc is ValueError:
+        assert GAConfig(batch_axis=engine.BATCH_AXIS).batch_axis == "ga_runs"
 
 
 def test_variation_mode_builds_and_rejects_the_jnp_oracle():
@@ -153,11 +157,20 @@ def test_config_keeps_every_reference_field_and_backend_names():
 
 
 def test_jnp_oracle_on_a_padded_problem_raises(bc_dataset):
+    """The "jnp" oracle averages over padded samples and ignores the output
+    mask, so a padded problem refuses it: ``pad_problem`` as the reference
+    does, and a Problem built with padded leaves too."""
+    from repro_torch.core.genome import GenomeSpec, max_topology
+
     ds = bc_dataset
     cfg = GAConfig(backends=BackendPolicy(fitness="jnp"))
     p = engine.Problem.from_data(MLPTopology(ds.topology), ds.x_train, ds.y_train,
                                  cfg, device="cpu")
     p.replace_cfg(seed=3)        # re-validating an unpadded problem is fine
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="count-based"):
         engine.Problem(p.x_int, p.labels, p.baseline_acc, p.spec, cfg,
                        out_mask=torch.as_tensor(np.array([1, 0], np.int32)))
+    spec_pad = GenomeSpec(max_topology([MLPTopology(ds.topology),
+                                        MLPTopology((11, 4, 6))]))
+    with pytest.raises(ValueError, match="count-based"):
+        engine.pad_problem(p, spec_pad)

@@ -33,7 +33,7 @@ def test_state_scan_matches_reference(b, nc, H, P, N, bh):
     want_kernel = np.asarray(j_kernel(jnp.asarray(sc), jnp.asarray(dec), bh=bh,
                                       interpret=True))
     ts, td = torch.as_tensor(sc), torch.as_tensor(dec)
-    for got in (state_scan(ts, td), ssd_state_scan(ts, td, bh=bh), ssd_state_scan_ref(ts, td)):
+    for got in (state_scan(ts, td), ssd_state_scan(ts, td), ssd_state_scan_ref(ts, td)):
         assert got.dtype == torch.float32 and tuple(got.shape) == sc.shape
         for want in (want_ref, want_kernel):
             np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
@@ -62,8 +62,16 @@ def test_plain_version_rounds_multiply_and_add_apart():
 
 @pytest.mark.parametrize("H,bh", [(12, 8), (6, 4)])
 def test_heads_per_block_is_checked_as_the_reference_checks_it(H, bh):
+    """The reference refuses heads-per-block that do not divide H; the port
+    takes no ``bh`` (one thread per state element), so the same shapes run
+    and equal the plain version and the reference's oracle."""
     sc, dec = _inputs(1, 2, H, 4, 4)
     with pytest.raises(AssertionError):
         j_kernel(jnp.asarray(sc), jnp.asarray(dec), bh=bh, interpret=True)
-    with pytest.raises(ValueError, match="divide"):
+    with pytest.raises(TypeError):
         ssd_state_scan(torch.as_tensor(sc), torch.as_tensor(dec), bh=bh)
+    got = ssd_state_scan(torch.as_tensor(sc), torch.as_tensor(dec))
+    assert torch.equal(got, ssd_state_scan_plain(torch.as_tensor(sc), torch.as_tensor(dec)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_ref(jnp.asarray(sc),
+                                                             jnp.asarray(dec))),
+                               rtol=1e-6, atol=1e-6)
