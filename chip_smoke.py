@@ -8,7 +8,8 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
 1. device — the card's name, and ``nvidia-smi``'s name and power limit;
 2. build — the CUDA kernels from ``src/repro_torch/csrc`` into one
    shared library (nvcc, sm_90a, one compile per source, started
-   together, then one link);
+   together, then one link), with ptxas's report (registers, spills) on
+   the Hopper attention kernel, one line per compiled width;
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
@@ -46,7 +47,8 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    qwen3-14b prefill (bf16), each through its op with ``use_kernel=None``;
    each must launch its kernel and agree with its plain version: the state
    scan bit for bit, the pow2 product within 1e-4 of the plain output's
-   largest magnitude, attention within 2e-2 (bf16); then float32 cases
+   largest magnitude, bf16 attention within ``flash_attention_bf16_limit``
+   at every element (the worst ratio to it printed); then float32 cases
    of the attention (3e-4) and the pow2 product (1e-4);
 6. numbers — per kernel: the device time of its launch alone, operands
    prepared once (50 launches captured in a CUDA graph, replayed between
@@ -59,8 +61,12 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    bound the larger of the bytes over 3.35 TB/s, the products over the
    bf16 tensor cores (989 TFLOP/s) or the float32 pipe (67 TFLOP/s) and
    the exponentials over the special-function units, with the time of one
-   PyTorch call computing the same function beside them where there is
-   one (never called by the port). The lane axis: each GA kernel's launch
+   PyTorch call computing the same function beside them (never called by
+   the port): ``torch.matmul`` on the weights decoded once for K7,
+   ``scaled_dot_product_attention`` for K6 in bf16 and in float32, pinned
+   to the fastest of its backends that take the inputs (each backend's
+   time and the unpinned call's are printed, the chosen one named). The
+   lane axis: each GA kernel's launch
    for the suite's 15 lanes against the same work as 15 single-lane
    launches (both CUDA graphs), and a batched generation of the suite with
    its ranking's share against 15 single-lane generations; the probe.
@@ -74,9 +80,11 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -300,6 +308,52 @@ def require_close(name: str, got, want, atol: float, rtol: float) -> float:
     return require_within(name, got, want, atol + rtol * want.float().abs()).max().item()
 
 
+def sm90_ptxas(log: str) -> list:
+    """ptxas's report on the Hopper attention kernel, one line per compiled
+    width (D, Dv): registers at entry (setmaxnreg then moves them between
+    the warpgroups), spills, and any warning of that source."""
+    section = log.split("== flash_attention\n", 1)[-1].split("\n== ", 1)[0]
+    lines, entry = [], None
+    for line in section.splitlines():
+        m = re.search(r"entry function '\S*flash_attention_sm90ILi(\d+)ELi(\d+)E", line)
+        if m:
+            entry = f"flash_attention_sm90<{m[1]}, {m[2]}>"
+        elif "Compiling entry" in line:
+            entry = None
+        elif "warning" in line.lower():
+            lines.append(f"ptxas {line.strip()}")
+        elif entry and ("registers" in line or "spill" in line):
+            lines.append(f"{entry}: {line.split(':')[-1].strip()}")
+    return lines
+
+
+def sdpa(q, k, v):
+    """The yardstick for K6: causal ``scaled_dot_product_attention`` on
+    (BH, S, D) tensors, each backend that takes them pinned and timed.
+    Returns (the fastest backend's call, its name, {name: ms} for every
+    backend that ran, and the unpinned call's ms)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def default():
+        return F.scaled_dot_product_attention(q[None], k[None], v[None], is_causal=True)
+
+    calls, times = {}, {}
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH"):
+        def call(backend=SDPBackend.__members__[name]):
+            with sdpa_kernel([backend]):
+                return default()
+        try:
+            with warnings.catch_warnings():   # a refusing backend warns why
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        calls[name], times[name] = call, time_ms(call, reps=3, warmup=1)
+    best = min(times, key=times.get)
+    return calls[best], best, times, time_ms(default, reps=3, warmup=1)
+
+
 def lm_path(dev) -> dict:
     """Phase 5: the LM-side ops at full width through their public entry
     points, counted; each output held against its plain version."""
@@ -386,7 +440,6 @@ def lm_path(dev) -> dict:
 def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
     """Phase 6 for the LM-side kernels: the ``kernels`` rows."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.quantize import pow2_dequantize
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_call,
                                                             flash_attention_plain)
@@ -410,6 +463,12 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
     scan_bound = bound(ops_add((n_scan, {"fp32": 2})), 4 * (2 * n_scan + b * nc * H), n_sm,
                        clock_hz)
     w_bf16 = pow2_dequantize(wp, torch.bfloat16)
+    w_f32 = pow2_dequantize(wp, torch.float32)
+    yard = {"bf16": sdpa(q, k, v), "float32": sdpa(q32, k32, v32)}   # allow_tf32 False
+    for dtype, (_, best, times, default_ms) in yard.items():
+        print(f"[numbers] scaled_dot_product_attention {ATTN_SHAPE} {dtype}, causal, each "
+              f"backend pinned: {', '.join(f'{n} {t:.4f} ms' for n, t in times.items())}; "
+              f"unpinned {default_ms:.4f} ms; the library time below is {best}'s; {smi}")
     cases = {
         "ssd_state_scan": dict(
             shape=f"{SSD_SHAPE} float32 (mamba2-130m, batch 8 x 2048 tokens)",
@@ -424,28 +483,31 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
             replaces="src/repro/kernels/pow2_matmul/kernel.py:54",
             launch=pow2_matmul_call(x, wp)[0], reps=3, replays=2,
             plain=lambda: pow2_matmul_plain(x, wp),
-            library=lambda: torch.matmul(x, w_bf16),
+            library=lambda: torch.matmul(x, w_bf16), library_name="torch.matmul",
             bound=tc_bound(2 * M * K * Nf, TENSOR_BF16_FLOPS, 2 * M * K + K * Nf + 4 * M * Nf)),
         "pow2_matmul float32": dict(
             shape=f"x ({FFN_F32_M}, {K}) float32 x w ({K}, {Nf}) uint8",
             launch=pow2_matmul_call(x32, wp)[0], reps=3, replays=2,
-            plain=lambda: pow2_matmul_plain(x32, wp), library=None,
+            plain=lambda: pow2_matmul_plain(x32, wp),
+            library=lambda: torch.matmul(x32, w_f32), library_name="torch.matmul",
             bound=tc_bound(2 * FFN_F32_M * K * Nf, FP32_FLOPS,
                            4 * FFN_F32_M * K + K * Nf + 4 * FFN_F32_M * Nf)),
         "flash_attention": dict(
             shape=f"{ATTN_SHAPE} bf16 (qwen3-14b prefill)",
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention/kernel.py:66",
-            launch=flash_attention_call(q, k, v)[0], reps=3, replays=2,
+            launch=flash_attention_call(q, k, v)[0], reps=20, replays=3,
             plain=lambda: flash_attention_plain(q, k, v),
-            library=lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                           is_causal=True),
+            library=yard["bf16"][0],
+            library_name=f"scaled_dot_product_attention, {yard['bf16'][1]}",
             bound=tc_bound(2 * BH * pairs * (D + Dv), TENSOR_BF16_FLOPS,
                            2 * BH * S * (2 * D + 2 * Dv), BH * pairs)),
         "flash_attention float32": dict(
             shape=f"{ATTN_SHAPE} float32",
             launch=flash_attention_call(q32, k32, v32)[0], reps=3, replays=2,
-            plain=lambda: flash_attention_plain(q32, k32, v32), library=None,
+            plain=lambda: flash_attention_plain(q32, k32, v32),
+            library=yard["float32"][0],
+            library_name=f"scaled_dot_product_attention, {yard['float32'][1]}",
             bound=tc_bound(2 * BH * pairs * (D + Dv), FP32_FLOPS,
                            4 * BH * S * (2 * D + 2 * Dv), BH * pairs)),
     }
@@ -454,11 +516,12 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
         ms = device_ms(c["launch"], reps=c["reps"], replays=c["replays"])
         plain_ms = time_ms(c["plain"], reps=3, warmup=1)
         lib_ms = time_ms(c["library"], reps=10) if c["library"] else None
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({c['library_name']})"
         bound_ms, bound_by, term = c["bound"]
         kernel = name.split()[0]
-        print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device; plain "
-              f"{plain_ms:.3f} ms; library "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound {bound_ms:.4f} ms by "
+        print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device "
+              f"({c['reps']} launches per graph x {c['replays']} replays); plain "
+              f"{plain_ms:.3f} ms; library {lib}; bound {bound_ms:.4f} ms by "
               f"{bound_by} ({term}), {bound_ms / ms:.1%} of bound; "
               f"{lm['launches'][kernel]} launch(es) through its op on the LM path; {smi}")
         torch.cuda.empty_cache()
@@ -935,6 +998,8 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    for line in sm90_ptxas(info["ptxas"]):
+        print(f"[build] K6 bf16 {line}")
 
     # -- 3. kernels vs plain versions -------------------------------------
     max_err = dict.fromkeys(_cuda.LAUNCHES, 0)

@@ -1,11 +1,22 @@
 """Wrapper of the CUDA kernel ``flash_attention`` (``csrc/flash_attention.cu``).
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/kernel.py:
-flash_attention``: the causal FlashAttention-2 forward over (BH, S, D)
+flash_attention``: the causal FlashAttention forward over (BH, S, D)
 queries and keys and (BH, S, Dv) values, float32 or bfloat16, with the
 online softmax state (m, l, acc) kept across the key tiles and the tiles
-past the diagonal skipped. Forward only, as the reference. The source's
-header says what bounds it on the card.
+past the diagonal skipped. Forward only, as the reference. Two paths, one
+launch each:
+
+* bfloat16 runs the kernel built for Hopper: TMA loads over 3-D tensor maps
+  into a ring of shared-memory stages, a producer warpgroup beside two
+  consumer warpgroups, both products on ``wgmma``, p kept in registers.
+  TMA wants the rows' byte strides to be multiples of 16, so the wrapper
+  pads D and Dv up to multiples of 8 with zero columns (:func:`tma_operands`)
+  and keeps the scale of the unpadded D: the zeros add exact zeros to every
+  score and output column, and the output is sliced back.
+* float32 runs a SIMT kernel on the float32 pipe.
+
+The source's header says what bounds each on the card.
 
 On a CUDA tensor the wrapper checks its inputs and launches the kernel; on
 a CPU tensor it runs :func:`flash_attention_plain`. It never falls back.
@@ -20,8 +31,10 @@ from .. import _cuda
 from .ref import flash_attention_ref
 
 MAX_DV = 128     # csrc/flash_attention.cu kMaxDv: accumulator columns per row
-MAX_D = 128      # query/key width the kernel's shared memory is sized for
+MAX_D = 128      # query/key width the kernels' shared memory is sized for
 QKV_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+TMA_ALIGN = 16   # bytes: TMA's global addresses and row strides are multiples of it
+TMA_COLS = 8     # bf16 columns in TMA_ALIGN bytes
 
 # The kernel's plain PyTorch version (same arguments; the sums and the
 # softmax run in another order).
@@ -35,9 +48,27 @@ def check_blocks(S: int, block_q: int, block_k: int) -> None:
         raise ValueError(f"blocks (block_q, block_k) = {(bq, bk)} must divide S = {S}")
 
 
+def tma_operands(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each bf16 tensor as the kernel's TMA loads take it: its last
+    dimension padded with zero columns to a multiple of 8 (16 bytes) and
+    its storage 16-byte aligned; a tensor that already is comes back as it
+    is."""
+    out = []
+    for t in ts:
+        w = t.shape[-1]
+        wp = -(-w // TMA_COLS) * TMA_COLS
+        if wp != w or t.data_ptr() % TMA_ALIGN:
+            p = t.new_zeros((*t.shape[:-1], wp))
+            p[..., :w] = t
+            t = p
+        out.append(t)
+    return tuple(out)
+
+
 def flash_attention_call(q, k, v) -> tuple[_cuda.Launch, torch.Tensor]:
     """The checked launch of the kernel on CUDA tensors, and the (BH, S,
-    Dv) output (q's type) it writes."""
+    Dv) output (q's type) it writes: for bfloat16 a view of the padded
+    output the launch writes (see :func:`tma_operands`)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention launches on CUDA tensors, got {dev}")
@@ -51,11 +82,14 @@ def flash_attention_call(q, k, v) -> tuple[_cuda.Launch, torch.Tensor]:
     _cuda.check(q, "q", q.dtype, (BH, S, D), dev)
     _cuda.check(k, "k", q.dtype, (BH, S, D), dev)
     _cuda.check(v, "v", q.dtype, (BH, S, Dv), dev)
-    out = torch.empty((BH, S, Dv), dtype=q.dtype, device=dev)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), QKV_TYPES[q.dtype], BH, S, D, Dv,
-            1.0 / math.sqrt(D), out.data_ptr())
+    scale = 1.0 / math.sqrt(D)
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_operands(q, k, v)
+    out = torch.empty((BH, S, v.shape[-1]), dtype=q.dtype, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), QKV_TYPES[q.dtype], BH, S, q.shape[-1],
+            v.shape[-1], scale, out.data_ptr())
     return (_cuda.Launch("flash_attention", "flash_attention_launch", args, (q, k, v, out)),
-            out)
+            out[..., :Dv])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -75,4 +109,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch, out = flash_attention_call(q, k, v)
     if out.numel():
         launch()
-    return out
+    return out.contiguous()

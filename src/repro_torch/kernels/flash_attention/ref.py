@@ -9,10 +9,10 @@ import torch
 NEG_INF = -1e30
 
 
-def _causal_softmax(q, k):
-    """The float32 (BH, S, S) causal softmax of q·kᵀ/√D, keys after the
-    query masked to -1e30."""
-    S, D = q.shape[1], q.shape[2]
+def _causal_softmax(q, k, head_dim=None):
+    """The float32 (BH, S, S) causal softmax of q·kᵀ/√D, D = ``head_dim`` or
+    q's width, keys after the query masked to -1e30."""
+    S, D = q.shape[1], head_dim or q.shape[2]
     f32 = torch.float32
     s = torch.matmul(q.to(f32), k.to(f32).transpose(1, 2)) / math.sqrt(D)
     pos = torch.arange(S, device=q.device)
@@ -20,14 +20,16 @@ def _causal_softmax(q, k):
     return torch.softmax(s, dim=-1)
 
 
-def flash_attention_ref(q, k, v):
+def flash_attention_ref(q, k, v, head_dim=None):
     """q/k: (BH, S, D); v: (BH, S, Dv) → (BH, S, Dv) in q's type: the dense
-    causal softmax. Scores are float32 products divided by √D, keys after
+    causal softmax. Scores are float32 products divided by √D (by
+    √head_dim when it is given: q and k padded with zero columns keep the
+    unpadded width's scale), keys after
     the query are masked to -1e30, p is cast to v's type before P·V and the
     product accumulates in float32 (every operand cast to float32, exact for
     bf16). The caller keeps ``torch.backends.cuda.matmul.allow_tf32`` False
     on the card."""
-    p = _causal_softmax(q, k)
+    p = _causal_softmax(q, k, head_dim)
     f32 = torch.float32
     return torch.matmul(p.to(v.dtype).to(f32), v.to(f32)).to(q.dtype)
 

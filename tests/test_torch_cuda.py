@@ -305,9 +305,16 @@ def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("BH,S,D,Dv", [(2, 100, 32, 16), (3, 130, 64, 128), (1, 1, 8, 8),
-                                       (2, 257, 128, 128), (4, 128, 16, 48),
-                                       (2, 2048, 128, 128)])
+@pytest.mark.parametrize("BH,S,D,Dv", [
+    (2, 100, 32, 16), (3, 130, 64, 128), (1, 1, 8, 8), (2, 257, 128, 128), (4, 128, 16, 48),
+    (2, 2048, 128, 128),
+    # the bf16 kernel's edges: S ragged against its 128-query and 128-key tiles
+    (1, 127, 128, 128), (1, 129, 128, 128), (1, 4097, 128, 128),
+    # minicpm3's MLA widths and zamba2's, compiled for 128/64 and 64/64
+    (3, 257, 96, 64), (5, 129, 64, 64),
+    # widths the wrapper pads with zero columns (TMA's 16-byte strides), with
+    # several heads of ragged S: a row written past a head's end lands in the next
+    (3, 200, 7, 5), (4, 300, 36, 100)])
 def test_flash_attention_kernel_equals_plain(card, dtype, BH, S, D, Dv):
     g = torch.Generator(device=card).manual_seed(BH * S + D)
     q, k, v = (torch.randn((BH, S, d), generator=g, device=card).to(dtype) for d in (D, D, Dv))

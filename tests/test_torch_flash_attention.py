@@ -11,7 +11,12 @@ per-element ``flash_attention_bf16_limit`` that ``chip_smoke.py`` and the
 card tests hold the CUDA kernel to. That limit is checked here from both
 sides at D = 128: the Pallas kernel's order stays inside it, and a plain
 attention with a wrong mask in the late rows of a 2048-token sequence
-(where outputs are small averages) falls outside it."""
+(where outputs are small averages) falls outside it.
+
+The bf16 kernel's TMA loads want rows of a multiple of 16 bytes, so its
+wrapper pads D and Dv with zero columns and keeps the unpadded D's scale:
+here the plain version on the padded operands equals the unpadded call bit
+for bit once sliced back."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -23,6 +28,7 @@ from repro.kernels.flash_attention import flash_attention_ref as j_ref
 from repro_torch.kernels.flash_attention import (causal_attention, flash_attention,
                                                  flash_attention_bf16_limit,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention.kernel import tma_operands
 
 SHAPES = [(4, 128, 32, 32, 32, 32), (2, 256, 64, 32, 64, 64),
           (8, 64, 16, 16, 32, 16), (2, 128, 32, 16, 16, 32)]
@@ -128,3 +134,28 @@ def test_block_sizes_are_checked_as_the_reference_checks_them(S, bq, bk):
         j_kernel(*map(jnp.asarray, (q, k, v)), block_q=bq, block_k=bk, interpret=True)
     with pytest.raises(ValueError, match="divide"):
         flash_attention(*map(torch.as_tensor, (q, k, v)), block_q=bq, block_k=bk)
+
+
+@pytest.mark.parametrize("BH,S,D,Dv", [(3, 200, 7, 5), (2, 129, 1, 13), (2, 64, 36, 100),
+                                       (1, 65, 121, 127)])
+def test_zero_padding_for_tma_keeps_the_function(BH, S, D, Dv):
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16) for a in _qkv(BH, S, D, Dv, seed=S + D))
+    qp, kp, vp = tma_operands(q, k, v)
+    Dp, Dvp = -(-D // 8) * 8, -(-Dv // 8) * 8
+    assert tuple(qp.shape) == tuple(kp.shape) == (BH, S, Dp)
+    assert tuple(vp.shape) == (BH, S, Dvp)
+    for t, p in ((q, qp), (k, kp), (v, vp)):
+        assert p.dtype == torch.bfloat16 and p.data_ptr() % 16 == 0
+        assert torch.equal(p[..., :t.shape[-1]], t) and not p[..., t.shape[-1]:].any()
+    out = flash_attention_ref(qp, kp, vp, head_dim=D)[..., :Dv]
+    assert tuple(out.shape) == (BH, S, Dv) and out.dtype == torch.bfloat16
+    assert torch.equal(out, flash_attention_ref(q, k, v))
+
+
+def test_tma_operands_pass_aligned_tensors_through():
+    q = torch.zeros((2, 16, 64), dtype=torch.bfloat16)
+    assert tma_operands(q)[0] is q
+    # a view whose storage starts off a 16-byte boundary is copied
+    off = torch.zeros(2 * 16 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 64)
+    (moved,) = tma_operands(off)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, off)

@@ -7,9 +7,13 @@
   ``use_kernel=True`` in the LM-side ops;
 * config fields whose path is not ported raise ``NotImplementedError``,
   and the backend names are the reference's minus "interpret";
-  device-variation fitness is ported and needs a count-based backend.
+  device-variation fitness is ported and needs a count-based backend;
+* every C launcher in ``csrc/*.cu`` is bound with the ctypes signature of
+  its parameters, so a changed launcher cannot be called with a stale one.
 """
 import ast
+import ctypes
+import re
 from pathlib import Path
 
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 
 from repro.core import engine as jeng
 from repro_torch.core import GAConfig, GATrainer, MLPTopology, engine
+from repro_torch.kernels import _cuda
 from repro_torch.kernels.backend import BackendPolicy, resolve_backends, BACKEND_CHOICES
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -174,3 +179,34 @@ def test_jnp_oracle_on_a_padded_problem_raises(bc_dataset):
                                         MLPTopology((11, 4, 6))]))
     with pytest.raises(ValueError, match="count-based"):
         engine.pad_problem(p, spec_pad)
+
+
+def _launchers() -> dict:
+    """name → parameter list of every ``extern "C" int *_launch(...)`` in
+    the port's CUDA sources."""
+    found = {}
+    for path in sorted(_cuda.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+_launch)\(([^)]*)\)',
+                                       path.read_text()):
+            assert name not in found, f"{name} defined twice"
+            found[name] = [" ".join(p.split()) for p in params.split(",")]
+    return found
+
+
+def _ctype(param: str):
+    """The ctypes type a C parameter is bound with: a pointer c_void_p, an
+    int c_int, a float c_float (the launchers take nothing else)."""
+    if "*" in param:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "float": ctypes.c_float}[" ".join(param.split()[:-1])]
+
+
+def test_every_launcher_has_a_signature():
+    assert set(_launchers()) == set(_cuda._SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_cuda._SIGNATURES))
+def test_launcher_signature_matches_its_source(name):
+    params = _launchers()[name]
+    assert len(params) == len(_cuda._SIGNATURES[name]), params
+    assert tuple(map(_ctype, params)) == _cuda._SIGNATURES[name], params
