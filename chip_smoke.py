@@ -8,8 +8,9 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
 1. device — the card's name, and ``nvidia-smi``'s name and power limit;
 2. build — the CUDA kernels from ``src/repro_torch/csrc`` into one
    shared library (nvcc, sm_90a, one compile per source, started
-   together, then one link), with ptxas's report (registers, spills) on
-   the Hopper attention kernel, one line per compiled width;
+   together, then one link), with ptxas's report (registers, shared
+   memory, spills) on the Hopper attention kernel, one line per compiled
+   width, and on both K7 kernels;
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
@@ -62,7 +63,10 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    bf16 tensor cores (989 TFLOP/s) or the float32 pipe (67 TFLOP/s) and
    the exponentials over the special-function units, with the time of one
    PyTorch call computing the same function beside them (never called by
-   the port): ``torch.matmul`` on the weights decoded once for K7,
+   the port): for K7 on the weights decoded once, ``torch.mm(...,
+   out_dtype=torch.float32)`` in bf16 (the kernel's float32 output;
+   ``torch.matmul`` where this torch refuses it, both printed) and
+   ``torch.matmul`` in float32,
    ``scaled_dot_product_attention`` for K6 in bf16 and in float32, pinned
    to the fastest of its backends that take the inputs (each backend's
    time and the unpinned call's are printed, the chosen one named). The
@@ -308,23 +312,32 @@ def require_close(name: str, got, want, atol: float, rtol: float) -> float:
     return require_within(name, got, want, atol + rtol * want.float().abs()).max().item()
 
 
-def sm90_ptxas(log: str) -> list:
-    """ptxas's report on the Hopper attention kernel, one line per compiled
-    width (D, Dv): registers at entry (setmaxnreg then moves them between
-    the warpgroups), spills, and any warning of that source."""
-    section = log.split("== flash_attention\n", 1)[-1].split("\n== ", 1)[0]
+def entry_ptxas(log: str, source: str, entries: dict) -> list:
+    """ptxas's report on chosen kernels of one source, one line per
+    compiled entry: registers (at entry, for the warp-specialised kernels:
+    setmaxnreg then moves them between the warpgroups), static shared
+    memory, stack and spill bytes, and any warning of that source.
+    ``entries`` maps a regex on the mangled entry name to a label
+    (``{0}``, ``{1}``: its groups)."""
+    section = log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
     lines, entry = [], None
     for line in section.splitlines():
-        m = re.search(r"entry function '\S*flash_attention_sm90ILi(\d+)ELi(\d+)E", line)
-        if m:
-            entry = f"flash_attention_sm90<{m[1]}, {m[2]}>"
-        elif "Compiling entry" in line:
-            entry = None
+        if "Compiling entry" in line:
+            entry = next((label.format(*m.groups()) for pat, label in entries.items()
+                          if (m := re.search(pat, line))), None)
         elif "warning" in line.lower():
             lines.append(f"ptxas {line.strip()}")
         elif entry and ("registers" in line or "spill" in line):
             lines.append(f"{entry}: {line.split(':')[-1].strip()}")
     return lines
+
+
+SM90_ENTRIES = {
+    "flash_attention": {r"flash_attention_sm90ILi(\d+)ELi(\d+)E":
+                        "K6 bf16 flash_attention_sm90<{0}, {1}>"},
+    "pow2_matmul": {r"pow2_matmul_sm90": "K7 bf16 pow2_matmul_sm90",
+                    r"pow2_matmul_f32": "K7 float32 pow2_matmul_f32"},
+}
 
 
 def sdpa(q, k, v):
@@ -402,6 +415,7 @@ def lm_path(dev) -> dict:
     scale = want.abs().max().item()
     err["pow2_matmul"] = require_close("pow2_linear bf16 vs plain", y[0], want,
                                        1e-4 * scale, 0.0)
+    mm_ratio = err["pow2_matmul"] / (1e-4 * scale)
     del want, y
     # bf16: one bf16 unit of the output plus the spread of p's bf16 rounding
     # (flash_attention_bf16_limit), a limit that shrinks with the late rows'
@@ -421,18 +435,20 @@ def lm_path(dev) -> dict:
                              flash_attention_plain(q32, k32, v32), 3e-4, 3e-4)
     x32 = torch.randn((FFN_F32_M, K), generator=g, device=dev)
     want = pow2_matmul_plain(x32, wp)
+    scale32 = want.abs().max().item()
     err_mm32 = require_close("pow2_matmul float32 vs plain", pow2_matmul(x32, wp), want,
-                             1e-4 * want.abs().max().item(), 0.0)
+                             1e-4 * scale32, 0.0)
     torch.cuda.empty_cache()
     print(f"[lm] state_scan {SSD_SHAPE} f32 (mamba2-130m), pow2_linear x {tuple(x.shape)} bf16 "
           f"x w {tuple(wp.shape)} uint8 (qwen3-14b FFN), causal_attention {ATTN_SHAPE} bf16 "
           f"(qwen3-14b prefill) through their ops: launches {launches}; vs plain: state scan "
           f"bit for bit, pow2 max abs diff {err['pow2_matmul']:.3g} (limit 1e-4 x "
-          f"{scale:.4g}), attention bf16 {err['flash_attention']:.3g} ({fa_bf16['ratio']:.3g} x "
+          f"{scale:.4g}; {mm_ratio:.3g} x the limit at worst), attention bf16 {err['flash_attention']:.3g} ({fa_bf16['ratio']:.3g} x "
           f"the bf16 limit at worst; last quarter of the rows: max abs diff "
           f"{fa_bf16['late_err']:.3g}, median limit {fa_bf16['late_limit']:.3g}, median "
           f"|plain| {fa_bf16['late_out']:.3g}), float32 cases: attention {err_fa32:.3g} (3e-4), pow2 M={FFN_F32_M} "
-          f"{err_mm32:.3g} (1e-4 x max)")
+          f"{err_mm32:.3g} (1e-4 x max; {err_mm32 / (1e-4 * scale32):.3g} x the limit at "
+          f"worst)")
     return dict(state_c=state_c, decay=decay, q=q, k=k, v=v, q32=q32, k32=k32, v32=v32,
                 x=x[0], x32=x32, wp=wp, launches=launches, err=err)
 
@@ -464,6 +480,21 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
                        clock_hz)
     w_bf16 = pow2_dequantize(wp, torch.bfloat16)
     w_f32 = pow2_dequantize(wp, torch.float32)
+    # K7 bf16's like-for-like yardstick writes the kernel's float32 output
+    # (aten::mm.dtype); where this torch refuses it, torch.matmul's bf16 output
+    mm_lib, mm_lib_name = (lambda: torch.matmul(x, w_bf16)), "torch.matmul, bf16 output"
+    matmul_ms = time_ms(mm_lib, reps=10)
+    try:
+        torch.mm(x[:8], w_bf16, out_dtype=torch.float32)
+        mm_lib = lambda: torch.mm(x, w_bf16, out_dtype=torch.float32)   # noqa: E731
+        mm_lib_name = "torch.mm out_dtype=float32"
+        print(f"[numbers] K7 bf16 yardsticks: torch.mm(x, w, out_dtype=torch.float32) "
+              f"{time_ms(mm_lib, reps=10):.4f} ms, torch.matmul (bf16 output) "
+              f"{matmul_ms:.4f} ms; the library time below is torch.mm's; {smi}")
+    except (RuntimeError, TypeError) as e:
+        print(f"[numbers] K7 bf16 yardstick: torch.mm(..., out_dtype=torch.float32) raised "
+              f"{type(e).__name__}: {str(e).splitlines()[0]}; the library time below is "
+              f"torch.matmul's (bf16 output) {matmul_ms:.4f} ms; {smi}")
     yard = {"bf16": sdpa(q, k, v), "float32": sdpa(q32, k32, v32)}   # allow_tf32 False
     for dtype, (_, best, times, default_ms) in yard.items():
         print(f"[numbers] scaled_dot_product_attention {ATTN_SHAPE} {dtype}, causal, each "
@@ -481,13 +512,13 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
             shape=f"x ({M}, {K}) bf16 x w ({K}, {Nf}) uint8 (qwen3-14b FFN)",
             source="src/repro_torch/csrc/pow2_matmul.cu",
             replaces="src/repro/kernels/pow2_matmul/kernel.py:54",
-            launch=pow2_matmul_call(x, wp)[0], reps=3, replays=2,
+            launch=pow2_matmul_call(x, wp)[0], reps=10, replays=3,
             plain=lambda: pow2_matmul_plain(x, wp),
-            library=lambda: torch.matmul(x, w_bf16), library_name="torch.matmul",
+            library=mm_lib, library_name=mm_lib_name,
             bound=tc_bound(2 * M * K * Nf, TENSOR_BF16_FLOPS, 2 * M * K + K * Nf + 4 * M * Nf)),
         "pow2_matmul float32": dict(
             shape=f"x ({FFN_F32_M}, {K}) float32 x w ({K}, {Nf}) uint8",
-            launch=pow2_matmul_call(x32, wp)[0], reps=3, replays=2,
+            launch=pow2_matmul_call(x32, wp)[0], reps=10, replays=3,
             plain=lambda: pow2_matmul_plain(x32, wp),
             library=lambda: torch.matmul(x32, w_f32), library_name="torch.matmul",
             bound=tc_bound(2 * FFN_F32_M * K * Nf, FP32_FLOPS,
@@ -518,12 +549,13 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
         lib_ms = time_ms(c["library"], reps=10) if c["library"] else None
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({c['library_name']})"
         bound_ms, bound_by, term = c["bound"]
-        kernel = name.split()[0]
+        # the float32 cases run after the LM path's counts are read, as checks
+        path = (f"{lm['launches'][name]} launch(es) through its op on the LM path"
+                if name in lm["launches"] else "a check after the LM path")
         print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device "
               f"({c['reps']} launches per graph x {c['replays']} replays); plain "
               f"{plain_ms:.3f} ms; library {lib}; bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({term}), {bound_ms / ms:.1%} of bound; "
-              f"{lm['launches'][kernel]} launch(es) through its op on the LM path; {smi}")
+              f"{bound_by} ({term}), {bound_ms / ms:.1%} of bound; {path}; {smi}")
         torch.cuda.empty_cache()
         if "source" in c:
             rows.append({"name": name, "route": "cuda", "source": c["source"],
@@ -998,8 +1030,12 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    for line in sm90_ptxas(info["ptxas"]):
-        print(f"[build] K6 bf16 {line}")
+    for source, entries in SM90_ENTRIES.items():
+        for line in entry_ptxas(info["ptxas"], source, entries):
+            print(f"[build] {line}")
+    from repro_torch.kernels.pow2_matmul.kernel import SM90_SMEM_BYTES
+    print(f"[build] K7 bf16 pow2_matmul_sm90: {SM90_SMEM_BYTES} bytes of dynamic shared "
+          f"memory per block")
 
     # -- 3. kernels vs plain versions -------------------------------------
     max_err = dict.fromkeys(_cuda.LAUNCHES, 0)

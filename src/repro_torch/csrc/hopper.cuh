@@ -4,14 +4,17 @@
 //     writes), and the register fence that keeps the compiler from touching an
 //     accumulator or an A fragment while an asynchronous wgmma owns it;
 //   * wgmma.fence / commit_group / wait_group and the bf16 wgmma.mma_async
-//     forms: m64n128k16 with A and B in shared memory (SS), and m64n128k16 and
-//     m64n64k16 with A in registers and B transposed (RS, MN-major B);
+//     forms: m64n128k16 with A and B in shared memory (SS), K-major B or
+//     B transposed (MN-major), and m64n128k16 and m64n64k16 with A in
+//     registers and B transposed (RS, MN-major B);
 //   * mbarrier init, arrive, arrive.expect_tx and try_wait.parity, and the
 //     fence that makes barrier inits visible to the TMA unit;
-//   * the 3-D TMA tile load (cp.async.bulk.tensor) and fence.proxy.async;
+//   * the 2-D and 3-D TMA tile loads (cp.async.bulk.tensor) and
+//     fence.proxy.async;
 //   * setmaxnreg, which moves registers from a producer warpgroup to the
 //     consumer warpgroups;
-//   * a host helper that encodes a 3-D bf16 CUtensorMap. cuTensorMapEncodeTiled
+//   * host helpers that encode a 3-D bf16 CUtensorMap (128-byte swizzle) and a
+//     2-D uint8 one (no swizzle). cuTensorMapEncodeTiled
 //     lives in libcuda; it is fetched with cudaGetDriverEntryPoint, so the
 //     library links against the runtime alone (no -lcuda). <cuda.h> is included
 //     for the CUtensorMap type and its enums only.
@@ -99,6 +102,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same with B transposed: B (16 x 128) bf16 MN-major in shared memory (the
+// N dimension contiguous, 64-wide blocks LBO apart, 8-row groups along K 1024
+// bytes apart, each k16 slice 2048 bytes on).
+__device__ __forceinline__ void wgmma_m64n128k16_ss_tb(float (&d)[64], uint64_t a, uint64_t b,
+                                                       int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" HOPPER_R0_31 ", " HOPPER_R32_63
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : HOPPER_ACC32(0), HOPPER_ACC32(32)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 128) += A (64 x 16, bf16 pairs in registers: the m64k16 A fragment)
 // . B (16 x 128, bf16 MN-major in shared memory: the B operand transposed).
 __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4],
@@ -181,6 +197,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// The same for a 2-D tensor map: coordinates (c0 innermost, c1).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 // Orders this thread's generic-proxy shared-memory writes before later
 // async-proxy (TMA, wgmma) accesses.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -202,13 +227,14 @@ __device__ __forceinline__ void regs_dec() {
 
 // -- host --------------------------------------------------------------------
 
-// Encodes `map` over a row-major bf16 tensor (outer, rows, cols) at `base`:
-// boxes of 64 columns x `box_rows` rows x 1, 128-byte swizzle, zero fill out
-// of bounds, so a box past `rows` or `cols` never reads the next slice of
-// `outer`. TMA wants `base` 16-byte aligned and `cols` a multiple of 8.
-// Returns 0, or a cudaError_t code.
-inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                          uint64_t outer, uint32_t box_rows) {
+// Encodes `map` over a row-major tensor of `rank` dimensions at `base`
+// (`dims` innermost first, `strides` the byte steps of dims 1.., `box` the
+// tile a load copies), zero fill out of bounds. TMA wants `base` 16-byte
+// aligned and every stride a multiple of 16 bytes. Returns 0, or a
+// cudaError_t code.
+inline int encode_tiled(CUtensorMap* map, CUtensorMapDataType type, uint32_t rank,
+                        const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -223,15 +249,35 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t cols, uin
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A row-major bf16 tensor (outer, rows, cols): boxes of 64 columns x
+// `box_rows` rows x 1, 128-byte swizzle, so a box past `rows` or `cols` never
+// reads the next slice of `outer`. `cols` a multiple of 8.
+inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                          uint64_t outer, uint32_t box_rows) {
   const cuuint64_t dims[3] = {cols, rows, outer};
   const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};   // bytes, dims 1 and 2
   const cuuint32_t box[3] = {64, box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A row-major uint8 tensor (rows, cols), unswizzled boxes of `box_cols` x
+// `box_rows` (`box_cols` a multiple of 16). `cols` a multiple of 16.
+inline int encode_u8_2d(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                        uint32_t box_cols, uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

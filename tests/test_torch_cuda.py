@@ -4,7 +4,8 @@ delta tables with K = 1 and 6, exact equality; the lane axis of the GA
 kernels at L = 1 and 3 (unequal per-lane sample counts, a shared row
 bound), one launch for all lanes; the probe kernel and its memo; the LM-side kernels at
 small and ragged shapes (the state scan bit for bit, the pow2 product
-within 1e-4 of the plain output's largest magnitude, attention within
+within 1e-4 of the plain output's largest magnitude and its decode of every
+code exact, attention within
 3e-4 in float32 and ``flash_attention_bf16_limit`` in bfloat16). The
 tests skip, with a reason, where ``torch.cuda.is_available()`` is False;
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.quantize import pow2_dequantize
 from repro_torch.core.genome import GenomeSpec, MLPTopology, _slot_keys, random_population
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.pop_generation import pop_generation_kernel, pop_generation_plain
@@ -288,11 +290,20 @@ def test_ssd_scan_kernel_equals_plain(card, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N", [(128, 128, 128), (77, 100, 130), (1, 5, 3), (256, 384, 512),
-                                   (200, 256, 384)])
-def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N):
+@pytest.mark.parametrize("M,K,N,offset", [
+    (128, 128, 128, 0), (77, 100, 130, 0), (1, 5, 3, 0), (256, 384, 512, 0), (200, 256, 384, 0),
+    # the bf16 kernel's edges: M ragged against its 256-row tile, N against
+    # 128, K against its 64-deep slice; more slices than its 4 ring stages
+    (255, 128, 128, 0), (257, 128, 128, 0), (128, 128, 129, 0), (128, 65, 128, 0),
+    (512, 1024, 512, 0),
+    # K not a multiple of 8 and N not of 16 (the wrapper pads), and x a view
+    # whose storage is not 16-byte aligned (the wrapper copies it)
+    (300, 1030, 200, 0), (96, 256, 384, 1), (77, 100, 130, 3)])
+def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N, offset):
     g = torch.Generator(device=card).manual_seed(M + K + N)
-    x = torch.randn((M, K), generator=g, device=card).to(dtype)
+    buf = torch.empty(M * K + offset, device=card, dtype=dtype)
+    buf[offset:] = torch.randn((M * K,), generator=g, device=card).to(dtype)
+    x = buf[offset:].view(M, K)
     wp = pack_weights(torch.randn((K, N), generator=g, device=card) * 0.1)
     before = _cuda.LAUNCHES["pow2_matmul"]
     got = pow2_linear(x[None], wp)[0]
@@ -302,6 +313,26 @@ def test_pow2_matmul_kernel_equals_plain(card, dtype, M, K, N):
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     zero = pack_weights(torch.zeros((K, N), device=card))
     assert pow2_matmul(x, zero).abs().max() == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pow2_matmul_decodes_every_code_exactly(card, dtype):
+    """x the identity (K = 256) and weights holding each of the 256 codes
+    in every column position mod 128: each output is one exact product, so
+    the kernel's output is the decoded weights, bit for bit where they are
+    not zero (0x7F gives 0, 0xFF -2^64, 0x00 2^-63)."""
+    K, N = 256, 256
+    x = torch.eye(K, device=card, dtype=dtype)
+    k, n = torch.meshgrid(torch.arange(K, device=card), torch.arange(N, device=card),
+                          indexing="ij")
+    wp = ((k + n) % 256).to(torch.uint8)
+    got = pow2_matmul(x, wp)
+    want = pow2_dequantize(wp, torch.float32)
+    assert torch.equal(got, want)
+    nz = want != 0
+    assert torch.equal(got.view(torch.int32)[nz], want.view(torch.int32)[nz])
+    assert (want[wp == 0x7F] == 0).all() and (want[wp == 0xFF] == -2.0**64).all()
+    assert (want[wp == 0x00] == 2.0**-63).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -22,7 +22,10 @@ decodes and rounds exactly, so the card and the CPU agree:
   equals the reference's on seeded normal weights.
 
 Matmul tolerances are the JAX test's: float32 1e-5, bfloat16 2e-2 (the sums
-run in another order)."""
+run in another order). The CUDA kernels' word decode (four codes per
+32-bit word) and the wrapper's padding of ragged K and N are held here through
+their plain twins: the decode bit for bit on every pair of codes, the
+padding exactly on the plain version."""
 import math
 from fractions import Fraction
 
@@ -41,7 +44,8 @@ from repro.kernels.pow2_matmul.kernel import _decode_pow2 as j_decode
 from repro_torch.core import quantize as tq
 from repro_torch.kernels.pow2_matmul import (pack_weights, pow2_linear, pow2_matmul,
                                              pow2_matmul_ref)
-from repro_torch.kernels.pow2_matmul.kernel import _decode_pow2
+from repro_torch.kernels.pow2_matmul.kernel import (_decode_pow2, decode_pow2_word,
+                                                    pad_operands)
 
 CODES = np.arange(256, dtype=np.uint8)
 MM_SHAPES = [(128, 128, 128, 128, 128, 128), (256, 384, 512, 128, 256, 128),
@@ -190,3 +194,56 @@ def test_block_sizes_are_checked_as_the_reference_checks_them(M, K, N, bm):
     assert torch.equal(got, pow2_matmul_ref(xt, torch.as_tensor(wp)))
     np.testing.assert_allclose(got.numpy(), np.asarray(j_ref(xj, jnp.asarray(wp))),
                                rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_word_decode_is_the_references_decode_on_every_pair():
+    """The kernels' branch-free decode of four codes in one 32-bit word,
+    spelled out in integer ops (``decode_pow2_word``), equals
+    ``_decode_pow2(…, jnp.bfloat16)`` bit for bit in every half, on all
+    65,536 pairs of codes: word bytes (c0, c1, c1, c0) put each pair in
+    both output words and both halves."""
+    want = np.asarray(j_decode(jnp.asarray(CODES), jnp.bfloat16)).view(np.uint16)
+    c0, c1 = (c.ravel().astype(np.int64) for c in
+              np.meshgrid(np.arange(256), np.arange(256), indexing="ij"))
+    words = c0 | (c1 << 8) | (c1 << 16) | (c0 << 24)
+    lo, hi = (t.numpy() for t in decode_pow2_word(torch.as_tensor(words)))
+    assert min(lo.min(), hi.min()) >= 0 and max(lo.max(), hi.max()) < 2**32
+    for got, first, second in ((lo, c0, c1), (hi, c1, c0)):
+        np.testing.assert_array_equal(got & 0xFFFF, want[first])
+        np.testing.assert_array_equal(got >> 16, want[second])
+    # 0x7F is +0, 0xFF is -2^64, 0x00 is 2^-63: as bf16 bit patterns
+    assert (want[0x7F], want[0xFF], want[0x00]) == (0x0000, 0xDF80, 0x2000)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,offset", [(77, 100, 130, 0), (1, 5, 3, 0), (300, 1030, 200, 0),
+                                          (64, 128, 256, 1), (33, 64, 48, 0)])
+def test_wrapper_padding_adds_exact_zeros(M, K, N, offset, dtype):
+    """``pad_operands`` gives x (M, K8) with zero columns and the weights
+    (K8, N16) with 0x7F rows and columns (K8, N16: K and N rounded up to 8
+    and 16), each 16-byte aligned, copying an operand whose storage is not
+    (``offset`` 1: x a view one element into its buffer); shapes that need
+    nothing come back as the same tensors. The padded operands through the
+    plain version give the unpadded call's output in their first N
+    columns, up to the order of the float32 sums (the CPU's BLAS blocks the
+    padded K another way): within K·2⁻²⁴·(|x|·|w|), the bound on a
+    reordered float32 sum of K exact products."""
+    _, xt, wp = _xw(M, K, N, dtype, seed=M + K + N)
+    buf = torch.zeros(M * K + offset, dtype=xt.dtype)
+    buf[offset:] = xt.reshape(-1)
+    x = buf[offset:].view(M, K)
+    w = torch.as_tensor(wp)
+    xp, wq = pad_operands(x, w)
+    k8, n16 = max(8, -(-K // 8) * 8), -(-N // 16) * 16
+    assert tuple(xp.shape) == (M, k8) and tuple(wq.shape) == (k8, n16)
+    assert xp.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    assert (xp is x) == (k8 == K and not offset) and (wq is w) == ((k8, n16) == (K, N))
+    assert torch.equal(xp[:, :K], x) and not xp[:, K:].any()
+    assert torch.equal(wq[:K, :N], w) and (wq[K:] == tq.ZERO_CODE).all()
+    assert (wq[:, N:] == tq.ZERO_CODE).all()
+    got = pow2_matmul_ref(xp, wq)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, n16)
+    assert not got[:, N:].any()
+    want = pow2_matmul_ref(x, w)
+    bound = K * 2.0**-24 * (x.float().abs() @ tq.pow2_dequantize(w).abs())
+    assert ((got[:, :N] - want).abs() <= bound).all()
