@@ -9,8 +9,10 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
 2. build — the CUDA kernels from ``src/repro_torch/csrc`` into one
    shared library (nvcc, sm_90a, one compile per source, started
    together, then one link), with ptxas's report (registers, shared
-   memory, spills) on the Hopper attention kernel, one line per compiled
-   width, and on both K7 kernels;
+   memory, spills) on both K6 kernels, one line per compiled width, on both
+   K7 kernels and on K4's kernel per compiled set of widths, and K4's
+   shared memory per block as its launcher asks for it (which the wrapper
+   checks, and ``ref.mc_smem_bytes`` must match);
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
@@ -77,7 +79,8 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
 
 The last three lines are the card's name and power limit, the ``kernels``
 JSON object (nine rows, the lane-axis numbers under ``lane_axis`` in the
-GA kernels' rows) and
+GA kernels' rows, the float32 cases of K6 and K7 under ``float32`` in
+their rows; every number in it but ``bound_ms`` measured in this run) and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 before printing any result.
 """
@@ -332,12 +335,47 @@ def entry_ptxas(log: str, source: str, entries: dict) -> list:
     return lines
 
 
-SM90_ENTRIES = {
+KERNEL_ENTRIES = {
     "flash_attention": {r"flash_attention_sm90ILi(\d+)ELi(\d+)E":
-                        "K6 bf16 flash_attention_sm90<{0}, {1}>"},
+                        "K6 bf16 flash_attention_sm90<{0}, {1}>",
+                        r"flash_attention_f32ILi(\d+)ELi(\d+)E":
+                        "K6 float32 flash_attention_f32<{0}, {1}>"},
     "pow2_matmul": {r"pow2_matmul_sm90": "K7 bf16 pow2_matmul_sm90",
                     r"pow2_matmul_f32": "K7 float32 pow2_matmul_f32"},
+    "pop_mlp": {r"pop_mlp_correct_mc_kernelILi(\d+)ELi(\d+)ELi(\d+)E":
+                "K4 pop_mlp_correct_mc_kernel<{0}, {1}, {2}>"},
 }
+# The redesigned kernels' times before their redesign, quoted from PERF.md's
+# kernel table (chip_smoke.py's own run before the redesign, NVIDIA H100 80GB
+# HBM3 at 700 W) and printed, labelled so, beside the times this run measures;
+# they are kept out of the kernels line, which holds this run's numbers
+EARLIER_MS = {"pop_mlp_correct_mc": 2.5364, "pop_mlp_correct_mc lanes": 4.4008,
+              "flash_attention float32": 9.1310}
+
+
+def mc_launch_smem(sizes, n_dev: int) -> int:
+    """K4's shared memory per block as its launcher asks for it on this
+    card (``pop_mlp_correct_mc_smem_bytes``, which the wrapper checks);
+    raises unless ``ref.mc_smem_bytes`` computes the same for the card's
+    limit."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.core.genome import GenomeSpec, MLPTopology
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.pop_mlp.kernel import net_desc
+    from repro_torch.kernels.pop_mlp.ref import mc_smem_bytes
+
+    desc = _cuda.host_ints(net_desc(GenomeSpec(MLPTopology(sizes))))
+    got = _cuda.library().pop_mlp_correct_mc_smem_bytes(ctypes.cast(desc, ctypes.c_void_p),
+                                                        n_dev)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if got != mc_smem_bytes(sizes, n_dev, limit):
+        raise AssertionError(f"K4 at {sizes}, K={n_dev}: the launcher asks for {got} bytes of "
+                             f"shared memory, ref.mc_smem_bytes gives "
+                             f"{mc_smem_bytes(sizes, n_dev, limit)}")
+    return got
 
 
 def sdpa(q, k, v):
@@ -449,6 +487,7 @@ def lm_path(dev) -> dict:
           f"|plain| {fa_bf16['late_out']:.3g}), float32 cases: attention {err_fa32:.3g} (3e-4), pow2 M={FFN_F32_M} "
           f"{err_mm32:.3g} (1e-4 x max; {err_mm32 / (1e-4 * scale32):.3g} x the limit at "
           f"worst)")
+    err["flash_attention float32"], err["pow2_matmul float32"] = err_fa32, err_mm32
     return dict(state_c=state_c, decay=decay, q=q, k=k, v=v, q32=q32, k32=k32, v32=v32,
                 x=x[0], x32=x32, wp=wp, launches=launches, err=err)
 
@@ -552,16 +591,20 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
         # the float32 cases run after the LM path's counts are read, as checks
         path = (f"{lm['launches'][name]} launch(es) through its op on the LM path"
                 if name in lm["launches"] else "a check after the LM path")
-        print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device "
+        before = (f" (before its redesign {EARLIER_MS[name]:.4f} ms, quoted from PERF.md)"
+                  if name in EARLIER_MS else "")
+        print(f"[numbers] {name} {c['shape']}: kernel {ms:.4f} ms on the device{before} "
               f"({c['reps']} launches per graph x {c['replays']} replays); plain "
               f"{plain_ms:.3f} ms; library {lib}; bound {bound_ms:.4f} ms by "
               f"{bound_by} ({term}), {bound_ms / ms:.1%} of bound; {path}; {smi}")
         torch.cuda.empty_cache()
+        row = {"max_abs_err": lm["err"][name], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
         if "source" in c:
             rows.append({"name": name, "route": "cuda", "source": c["source"],
-                         "replaces": c["replaces"], "launches": lm["launches"][name],
-                         "max_abs_err": lm["err"][name], "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms})
+                         "replaces": c["replaces"], "launches": lm["launches"][name], **row})
+        else:   # the float32 case of the row before it
+            rows[-1]["float32"] = dict(row, launches=0)
     return rows
 
 
@@ -930,9 +973,11 @@ def lane_numbers(lk: dict, suite, n_sm: int, clock_hz: float, smi: str) -> dict:
         bound_ms, bound_by, pipe = bound(ops, nbytes, n_sm, clock_hz)
         lanes[name] = {"L": L, "ms": ms, "per_lane_launches_ms": per_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by}
+        before = (f" (before its redesign {EARLIER_MS[f'{name} lanes']:.4f} ms, quoted from "
+                  f"PERF.md)" if f"{name} lanes" in EARLIER_MS else "")
         print(f"[numbers] lane axis {name}: {L} suite lanes (padded {topo.sizes}, G={G}, "
               f"P={P}, own samples{f', K={K_DEV}' if 'mc' in name else ''}): one launch "
-              f"{ms:.4f} ms on the device vs {L} single-lane launches {per_ms:.4f} ms "
+              f"{ms:.4f} ms on the device{before} vs {L} single-lane launches {per_ms:.4f} ms "
               f"({per_ms / ms:.2f}x); bound {bound_ms:.4f} ms by {bound_by} ({pipe}), "
               f"{bound_ms / ms:.1%} of bound; {smi}")
     # a whole batched generation of the suite and its ranking's share, host
@@ -1030,12 +1075,15 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
-    for source, entries in SM90_ENTRIES.items():
+    for source, entries in KERNEL_ENTRIES.items():
         for line in entry_ptxas(info["ptxas"], source, entries):
             print(f"[build] {line}")
     from repro_torch.kernels.pow2_matmul.kernel import SM90_SMEM_BYTES
     print(f"[build] K7 bf16 pow2_matmul_sm90: {SM90_SMEM_BYTES} bytes of dynamic shared "
           f"memory per block")
+    print(f"[build] K4 pop_mlp_correct_mc: dynamic shared memory per block from its launcher "
+          f"at K={K_DEV}: {mc_launch_smem((16, 5, 10), K_DEV)} bytes at pendigits (16, 5, 10), "
+          f"{mc_launch_smem((21, 5, 10), K_DEV)} at the suite's (21, 5, 10)")
 
     # -- 3. kernels vs plain versions -------------------------------------
     max_err = dict.fromkeys(_cuda.LAUNCHES, 0)
@@ -1283,9 +1331,11 @@ def main() -> int:
         bound_ms, bound_by, pipe = bound(s["ops"], s["nbytes"], n_sm, clock_hz)
         init = per_run[mode, "auto"][name] if backend == "ref" else 0
         per_gen = (per_run[mode, backend][name] - init) / GENERATIONS
+        before = (f" (before its redesign {EARLIER_MS[name]:.4f} ms, quoted from PERF.md)"
+                  if name in EARLIER_MS else "")
         print(f"[numbers] {name} pendigits P={P} G={G} S={S}"
               f"{f' K={K}' if mode != 'off' else ''}: kernel {ms:.4f} ms on the "
-              f"device (wrapper {wrapper_ms:.4f} ms on the device, {call_ms:.4f} ms a call "
+              f"device{before} (wrapper {wrapper_ms:.4f} ms on the device, {call_ms:.4f} ms a call "
               f"from the host; plain {plain_ms:.3f} ms); bound {bound_ms:.4f} ms by "
               f"{bound_by} (ops per pipe {s['ops']}, bounding term {pipe}; {s['nbytes']} B), "
               f"{bound_ms / ms:.1%} of bound; {per_gen:.2f} launches/generation on "

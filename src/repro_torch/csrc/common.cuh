@@ -4,7 +4,9 @@
 //     nominal or on a perturbed device instance (apply_device_deltas),
 //   * the per-gene variation of repro_torch/kernels/pop_variation/ref.py,
 //   * the tile counters that sweep samples over genomes held in shared memory,
-//     for the nominal device and for K perturbed device instances.
+//     for the nominal device and for K perturbed device instances;
+//   * K4's tables of per-instance weight multipliers and the forwards that
+//     read them (McTables, mc_build, mc_forwards_fixed, mc_forwards_any).
 //
 // Bit-identity rules (each one mirrors XLA, which the JAX reference runs on):
 //   * all hashing is uint32_t with natural wraparound;
@@ -306,7 +308,8 @@ inline int fitness_smem_bytes(int G) {
   return static_cast<int>(sizeof(int32_t)) * (kPopTile * G + kMaxWidth + kPopTile);
 }
 
-// McSmem's size (kernels/_cuda.py mc_smem_bytes computes the same).
+// McSmem's size (kernels/pop_generation/kernel.py ndev_smem_bytes computes the
+// same).
 inline int fitness_mc_smem_bytes(int G, int n_dev) {
   return static_cast<int>(sizeof(int32_t)) *
          (kPopTile * G + n_dev * G + G + kMaxWidth + kPopTile * n_dev);
@@ -318,6 +321,284 @@ template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// -- device instances by per-instance weight words (K4) -------------------------
+//
+// Instance k's term of a weight is sign * shl(h & mask, e_k), e_k the exponent
+// gene moved by the instance's delta and clipped (PerturbedExp). In wrapping
+// uint32 arithmetic that is (h & mask) * mult_k with mult_k = (2 sign - 1) << e_k,
+// and 0 where e_k leaves [0, 31] (shl's zero): the same bits. A block first
+// builds, for its kMcRows chromosomes, the tables its forwards read (McTables):
+// each instance's multiplier of each weight, the masks, each neuron's shifted
+// bias and each layer's right shift. A forward then costs an AND and a
+// multiply-add per weight, its table operands broadcast loads.
+// (kernels/pop_mlp/ref.py mc_tables builds the same tables on the CPU.)
+
+constexpr int kMcRows = 3;        // chromosomes per block
+constexpr int kMcThreads = 128;   // samples per block, one a thread
+// blocks per SM the compiled forwards are held to (128 registers a thread): a
+// block's table build waits on memory, and other blocks hide it; the
+// registers this takes from the forwards cost them less (a few spilled words)
+constexpr int kMcBlocksPerSM = 4;
+
+// Where a row's weights and neurons sit in the tables, laid out for the widths
+// fi[l] -> fo[l] of each layer: layer l's weight (i, j) at word woff[l] + i
+// fo[l] + j of a (row, instance) multiplier block and of a row's mask block
+// (wp words each), its neuron j at word noff[l] + j of a row's bias block (np
+// words). The general kernel lays out the net's own widths, packed (pad 1); a
+// kernel compiled for widths (IN, HID, OUT) lays out those, each layer padded
+// to 4 words (16-byte vector reads), and the words past the net's own widths
+// hold 0, so they add exact zeros.
+struct McLayout {
+  int woff[kMaxLayers], noff[kMaxLayers], fi[kMaxLayers], fo[kMaxLayers];
+  int wp, np;
+};
+
+// widths: the n_layers + 1 layer widths the tables are laid out for.
+inline McLayout mc_layout(const int* widths, int n_layers, int pad) {
+  McLayout m{};
+  for (int l = 0; l < n_layers; ++l) {
+    m.fi[l] = widths[l];
+    m.fo[l] = widths[l + 1];
+    m.woff[l] = m.wp;
+    m.noff[l] = m.np;
+    m.wp += (m.fi[l] * m.fo[l] + pad - 1) / pad * pad;
+    m.np += (m.fo[l] + pad - 1) / pad * pad;
+  }
+  return m;
+}
+
+// McTables' size in words (kernels/pop_mlp/ref.py mc_smem_bytes computes the
+// same): per row the K multiplier blocks, the masks, the biases, the right
+// shifts and the K counts, then the output mask.
+inline int mc_smem_words(const McLayout& m, int n_dev) {
+  return kMcRows * (n_dev * m.wp + m.wp + m.np + kMaxLayers + n_dev) + kMaxWidth;
+}
+
+struct McTables {
+  uint32_t *mult, *mask, *bias;   // [row][instance][wp], [row][wp], [row][np]
+  int32_t *rsh, *om, *red;        // [row][kMaxLayers], [kMaxWidth], [row][instance]
+  __device__ McTables(int32_t* smem, const McLayout& m, int n_dev)
+      : mult(reinterpret_cast<uint32_t*>(smem)),
+        mask(mult + kMcRows * n_dev * m.wp),
+        bias(mask + kMcRows * m.wp),
+        rsh(reinterpret_cast<int32_t*>(bias + kMcRows * m.np)),
+        om(rsh + kMcRows * kMaxLayers),
+        red(om + kMaxWidth) {}
+};
+
+// Fills the tables of the n_rows chromosomes g (global memory, row stride G)
+// for the n_dev delta rows of dev (global, n_dev x G; zero off the exponent
+// genes, which is all PerturbedExp reads) with the exclusive gene bounds
+// high, copies the output mask (0 past n_out) and zeroes the counts. Slots of
+// the layout past the net's widths get 0; the padding at a layer's end stays
+// unwritten: no forward reads it. The caller synchronises.
+// (Loops whose loads wait on each other leave the block idle here: with a
+// few blocks per SM their latency is not hidden.)
+static __device__ void mc_build(const McTables& t, const McLayout& m, const Net& net,
+                                const int32_t* __restrict__ g, int n_rows, int G,
+                                const int32_t* __restrict__ dev,
+                                const int32_t* __restrict__ high, int n_dev,
+                                const int32_t* __restrict__ out_mask, int n_out) {
+  for (int l = 0; l < net.n_layers; ++l) {
+    const Layer L = net.layer[l];
+    const int fo = m.fo[l], nw = m.fi[l] * fo;   // the layout's slots of the layer
+    // slot s of the layer: its weight's gene offset wl, or out of the net
+    const bool padded = fo != L.fan_out || m.fi[l] != L.fan_in;
+    auto weight = [&](int s, int& wl) {
+      if (!padded) {
+        wl = s;
+        return true;
+      }
+      const int a = s / fo, b = s % fo;
+      wl = a * L.fan_out + b;
+      return a < L.fan_in && b < L.fan_out;
+    };
+    // multipliers over (instance, slot): the delta and the bound once, then
+    // each row's exponent and sign; every load of an iteration is independent
+#pragma unroll 2
+    for (int i = threadIdx.x; i < n_dev * nw; i += blockDim.x) {
+      const int k = i / nw, s = i % nw;
+      int wl;
+      const bool in = weight(s, wl);
+      const int e_gene = L.exps + wl;
+      const int32_t d = in ? dev[static_cast<size_t>(k) * G + e_gene] : 0;
+      const int32_t hi = in ? high[e_gene] - 1 : 0;
+      uint32_t* out = t.mult + k * m.wp + m.woff[l] + s;
+#pragma unroll
+      for (int r = 0; r < kMcRows; ++r) {
+        if (r < n_rows) {
+          uint32_t w = 0;
+          if (in) {
+            const int32_t* gr = g + static_cast<size_t>(r) * G;
+            const int32_t e = gr[e_gene];
+            const int32_t ek = d == 0 ? e : min(max(e + d, 0), hi);
+            const uint32_t sign = static_cast<uint32_t>(gr[L.signs + wl]) * 2u - 1u;
+            w = (ek < 0 || ek > 31) ? 0u : sign << ek;
+          }
+          out[r * n_dev * m.wp] = w;
+        }
+      }
+    }
+    for (int i = threadIdx.x; i < n_rows * nw; i += blockDim.x) {
+      const int r = i / nw, s = i % nw;
+      int wl;
+      t.mask[r * m.wp + m.woff[l] + s] =
+          weight(s, wl) ? static_cast<uint32_t>(g[static_cast<size_t>(r) * G + L.masks + wl])
+                        : 0u;
+    }
+    for (int i = threadIdx.x; i < n_rows * fo; i += blockDim.x) {
+      const int r = i / fo, j = i % fo;
+      const int32_t* gr = g + static_cast<size_t>(r) * G;
+      t.bias[r * m.np + m.noff[l] + j] =
+          j < L.fan_out ? static_cast<uint32_t>(shl(gr[L.bias + j], gr[L.bshift])) : 0u;
+    }
+  }
+  for (int i = threadIdx.x; i < n_rows * net.n_layers; i += blockDim.x) {
+    const int rr = i / net.n_layers, l = i % net.n_layers;
+    const int32_t s = g[static_cast<size_t>(rr) * G + net.layer[l].rshift];
+    t.rsh[rr * kMaxLayers + l] = (s < 0 || s > 31) ? 31 : s;   // sar's amount
+  }
+  const int c = threadIdx.x;
+  if (c < kMaxWidth) t.om[c] = c < n_out ? out_mask[c] : 0;
+  for (int i = threadIdx.x; i < n_rows * n_dev; i += blockDim.x) t.red[i] = 0;
+}
+
+// Lane 0 of each warp adds the warp's correct forwards of (row, instance)
+// into the block's count (the sample loop is uniform: every lane votes).
+__device__ __forceinline__ void mc_vote(const McTables& t, int slot, bool ok) {
+  const unsigned votes = __ballot_sync(0xffffffffu, ok);
+  if ((threadIdx.x & 31) == 0 && votes) atomicAdd(&t.red[slot], __popc(votes));
+}
+
+// The forwards of one sample xs (global, n_in ints) on the n_rows x n_dev
+// (chromosome, instance) pairs of the tables, compiled for the widths (IN,
+// HID, OUT) of a 2-layer net that holds the sample's (the tables laid out
+// for them, zero past the net's own): every trip count is a constant, so the
+// sample, layer 1's x & mask (computed once per chromosome, shared by the
+// instances) and both layers' activations live in registers, and the tables
+// come in as 16-byte broadcast reads (each layer padded to 4 words). Inputs
+// past n_in read as 0; hidden neurons past the net's are 0 (a zero bias and
+// zero multipliers); output columns past it have a zero output mask.
+template <int IN, int HID, int OUT>
+static __device__ void mc_forwards_fixed(const McTables& t, const McLayout& m, int n_rows,
+                                         int n_dev, int act_max, int n_in,
+                                         const int32_t* __restrict__ xs, bool live, int32_t y) {
+  constexpr int kW1 = IN * HID, kW2 = HID * OUT;
+  constexpr int kG1 = (kW1 + 3) / 4, kG2 = (kW2 + 3) / 4;   // 4-word groups per layer
+  constexpr int kB2 = (HID + 3) / 4 * 4;                     // layer 2's first bias word
+  uint32_t x[IN];
+#pragma unroll
+  for (int i = 0; i < IN; ++i) x[i] = i < n_in ? static_cast<uint32_t>(xs[i]) : 0u;
+  uint32_t omb = 0;   // bit j: output column j is valid
+#pragma unroll
+  for (int j = 0; j < OUT; ++j) omb |= (t.om[j] > 0 ? 1u : 0u) << j;
+  for (int r = 0; r < n_rows; ++r) {
+    const uint4* mk = reinterpret_cast<const uint4*>(t.mask + r * m.wp);
+    uint32_t a1[kW1];
+#pragma unroll
+    for (int q = 0; q < kG1; ++q) {
+      const uint4 v = mk[q];
+      const uint32_t c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < kW1) a1[4 * q + e] = x[(4 * q + e) / HID] & c[e];
+    }
+    const uint32_t* br = t.bias + r * m.np;
+    uint32_t b1[HID], b2[OUT];
+#pragma unroll
+    for (int j = 0; j < HID; ++j) b1[j] = br[j];
+#pragma unroll
+    for (int j = 0; j < OUT; ++j) b2[j] = br[kB2 + j];
+    const int rs = t.rsh[r * kMaxLayers];
+    for (int k = 0; k < n_dev; ++k) {
+      const uint4* mu = reinterpret_cast<const uint4*>(t.mult + (r * n_dev + k) * m.wp);
+      uint32_t acc1[HID];
+#pragma unroll
+      for (int j = 0; j < HID; ++j) acc1[j] = b1[j];
+#pragma unroll
+      for (int q = 0; q < kG1; ++q) {
+        const uint4 v = mu[q];
+        const uint32_t c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < kW1) acc1[(4 * q + e) % HID] += a1[4 * q + e] * c[e];
+      }
+      uint32_t h[HID];
+#pragma unroll
+      for (int j = 0; j < HID; ++j)
+        h[j] = static_cast<uint32_t>(min(max(static_cast<int32_t>(acc1[j]) >> rs, 0), act_max));
+      uint32_t acc2[OUT];
+#pragma unroll
+      for (int j = 0; j < OUT; ++j) acc2[j] = b2[j];
+#pragma unroll
+      for (int q = 0; q < kG2; ++q) {
+        const uint4 v = mu[kG1 + q], u = mk[kG1 + q];
+        const uint32_t c[4] = {v.x, v.y, v.z, v.w}, mm[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * q + e < kW2) acc2[(4 * q + e) % OUT] += (h[(4 * q + e) / OUT] & mm[e]) * c[e];
+      }
+      int best = 0;
+      int32_t best_v = (omb & 1u) ? static_cast<int32_t>(acc2[0]) : INT32_MIN;
+#pragma unroll
+      for (int j = 1; j < OUT; ++j) {
+        const int32_t v = ((omb >> j) & 1u) ? static_cast<int32_t>(acc2[j]) : INT32_MIN;
+        if (v > best_v) {
+          best_v = v;
+          best = j;
+        }
+      }
+      mc_vote(t, r * n_dev + k, live && best == y);
+    }
+  }
+}
+
+// The same for any topology net_from_desc takes (up to kMaxLayers layers of
+// width up to kMaxWidth): runtime widths, so the activations sit in local
+// memory, and layer 1's AND is redone per instance.
+static __device__ void mc_forwards_any(const McTables& t, const McLayout& m, const Net& net,
+                                       int n_rows, int n_dev, const int32_t* __restrict__ xs,
+                                       bool live, int32_t y) {
+  const int n_in = net.layer[0].fan_in, n_out = net.layer[net.n_layers - 1].fan_out;
+  int32_t x[kMaxWidth];
+  for (int i = 0; i < n_in; ++i) x[i] = xs[i];
+  for (int r = 0; r < n_rows; ++r) {
+    for (int k = 0; k < n_dev; ++k) {
+      int32_t h[kMaxWidth], o[kMaxWidth];
+      for (int i = 0; i < n_in; ++i) h[i] = x[i];
+      for (int l = 0; l < net.n_layers; ++l) {
+        const Layer L = net.layer[l];
+        const uint32_t* mu = t.mult + (r * n_dev + k) * m.wp + m.woff[l];
+        const uint32_t* mk = t.mask + r * m.wp + m.woff[l];
+        const uint32_t* b = t.bias + r * m.np + m.noff[l];
+        const int rs = t.rsh[r * kMaxLayers + l];
+        const bool last = l == net.n_layers - 1;
+        for (int j = 0; j < L.fan_out; ++j) {
+          uint32_t acc = b[j];
+          for (int i = 0; i < L.fan_in; ++i) {
+            const int w = i * L.fan_out + j;
+            acc += (static_cast<uint32_t>(h[i]) & mk[w]) * mu[w];
+          }
+          int32_t a = static_cast<int32_t>(acc);
+          if (!last) a = min(max(a >> rs, 0), net.act_max);
+          o[j] = a;
+        }
+        for (int j = 0; j < L.fan_out; ++j) h[j] = o[j];
+      }
+      int best = 0;
+      int32_t best_v = t.om[0] > 0 ? h[0] : INT32_MIN;
+      for (int j = 1; j < n_out; ++j) {
+        const int32_t v = t.om[j] > 0 ? h[j] : INT32_MIN;
+        if (v > best_v) {
+          best_v = v;
+          best = j;
+        }
+      }
+      mc_vote(t, r * n_dev + k, live && best == y);
+    }
+  }
 }
 
 }  // namespace repro_torch

@@ -46,14 +46,37 @@
 //   with the next tile's Q.K^T inside a warpgroup (FA3's intra-warpgroup
 //   pipelining), clusters with TMA multicast of K and V, FP8, and a store
 //   through shared memory and TMA.
-// * float32: the SIMT pipe (flash_attention_f32). One block of 256 threads per
-//   (head, 64-query tile), heaviest tiles first; the block keeps its queries in
-//   shared memory (transposed) and loops over 32-key tiles up to the diagonal.
-//   Thread (ty, tx) owns query rows 4 ty .. 4 ty + 3: their scores against
-//   keys tx and tx + 16, and their accumulator columns tx + 16 j. The 16
-//   threads of a row group reduce the row maximum and sum with warp shuffles;
-//   p goes through shared memory to the P.V step. Multiply-adds are explicit
-//   __fmaf_rn; exponentials are expf.
+// * float32: the float32 pipe (flash_attention_f32), explicit __fmaf_rn, no TF32.
+//   Its bound is the FMA pipe's 67 TFLOP/s (2.56 ms for the 172 GFLOP at
+//   qwen3-14b prefill), and shared memory serves a quarter of that pipe's lanes
+//   a clock, so the thread tiles are sized for the products: one block of 256
+//   threads per (head, 128-query tile), heaviest tiles first over all heads
+//   (the grid's slow axis is the tile), key tiles of 64. Thread (rg, cg)
+//   (rg = 2 warp + lane / 16, cg = lane % 16) owns query rows 8 rg .. 8 rg + 7:
+//   in Q.K^T their scores against keys cg + 16 j (8 x 4), in P.V their output
+//   columns 4 cg + 64 h .. + 3 (8 x 8 for Dv > 64, 8 x 4 else). Each d step of
+//   Q.K^T reads 2 float4 of queries and 1 of keys for 32 products; each key of
+//   P.V 2 float4 of p and 1 or 2 of values for 32 or 64. The block keeps its
+//   queries transposed in shared memory ([d][query], loaded once), the key
+//   tile [key][d] with a row stride of 4 times an odd number of words, the
+//   value tile [key][Dv] and p [key][query]: every read is a broadcast or
+//   conflict-free. K and V tiles come by cp.async (16-byte pieces, rows past S
+//   zero-filled), K into two buffers and V into one: once K(t) has arrived,
+//   V(t) and K(t + 1) are issued together; V(t) flies during Q.K^T(t) and the
+//   softmax, K(t + 1) during the whole tile. Two __syncthreads a tile, 195 KB
+//   of shared memory at D = Dv = 128, about 200 registers: one block (8 warps)
+//   per SM. The online softmax works on the raw scores: a row's maximum
+//   reduces over the 16 threads of its row group (four shuffles), p = 2^(s
+//   log2e scale - m log2e scale) by ex2.approx, the row sums stay per thread
+//   until the epilogue. Only the two key tiles that cross the diagonal are
+//   masked, and in the upper one the warps whose rows all precede its keys
+//   skip both products; tiles past the block's last query are never loaded.
+//   D and Dv are multiples of 4 (the wrapper pads others with zero columns);
+//   the kernel is compiled for 64 or 128 of each (a constant trip count over
+//   d), and the zero-filled columns make up the rest. On the card it reaches
+//   about 64 % of its bound: the shared-memory reads (12 a thread for 128
+//   products of Q.K^T) take issue slots, and 8 warps hide little of their
+//   latency.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,14 +88,26 @@ namespace {
 
 constexpr int kMaxDv = 128;     // widest D and Dv either path takes
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (ex2.approx.ftz.f32): subnormal results
+// flush to zero, and the rounding differs from expf's; the float32 tolerance
+// (3e-4) and the bf16 limit cover both (a p below 2^-126 is nothing beside the
+// row's largest, which is 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // -- float32: the SIMT kernel ---------------------------------------------------
 
 constexpr int kFAThreads = 256;
-constexpr int kBQ = 64;         // queries per block
-constexpr int kBKV = 32;        // keys per tile
-constexpr int kQStride = kBQ + 4;
-constexpr int kKStride = kBKV + 1;
+constexpr int kFBQ = 128;              // queries per block
+constexpr int kFBK = 64;               // keys per tile
+constexpr int kFRows = 8;              // query rows a thread
+constexpr int kFKeys = 4;              // keys a thread in Q.K^T: cg + 16 j
+constexpr int kPStride = kFBQ + 4;     // p [key][query]: rows 4 banks apart
 
 // max / sum over the 16 lanes that share a row group (xor offsets stay inside
 // each half warp)
@@ -87,139 +122,252 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// dynamic shared memory, in floats: queries [D][kQStride], keys [D][kKStride]
-// (rounded up to 4 floats, so the float4 reads of p stay 16-byte aligned),
-// values [kBKV][Dv], p [kBKV][kQStride]
-__host__ __device__ inline int keys_floats(int D) { return (D * kKStride + 3) / 4 * 4; }
-inline int flash_smem_bytes(int D, int Dv) {
-  return 4 * (D * kQStride + keys_floats(D) + kBKV * Dv + kBKV * kQStride);
+// Row stride of the key tile [key][d]: DQK + 4 or DQK + 8, whichever is 4 times
+// an odd number, so the 16 keys cg + 16 j a warp reads at one d fall on 8
+// distinct 16-byte bank groups twice (two wavefronts, the least for 256 bytes).
+__host__ __device__ constexpr int key_stride(int dqk) { return dqk + ((dqk / 4) % 2 ? 8 : 4); }
+
+// dynamic shared memory, in bytes: queries [DQK][kFBQ], two key tiles
+// [kFBK][key_stride], values [kFBK][DV], p [kFBK][kPStride]
+constexpr int f32_smem_bytes(int dqk, int dv) {
+  return 4 * (dqk * kFBQ + 2 * kFBK * key_stride(dqk) + kFBK * dv + kFBK * kPStride);
 }
 
-__global__ void __launch_bounds__(kFAThreads)
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+// (src is then not read, but must be a mapped address)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// DQK, DV: the widths the kernel is compiled for (64 or 128; D <= DQK,
+// Dv <= DV); the query and key columns past D are zero in shared memory.
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kFAThreads, 1)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, int S, int D, int Dv, float scale,
                     float* __restrict__ out) {
+  constexpr int kNH = DV / 64;         // 64-column halves of a thread's output columns
+  constexpr int kK4 = DQK / 4;         // 16-byte pieces of a key row
+  constexpr int kV4 = DV / 4;          // 16-byte pieces of a value row
+  constexpr int KS = key_stride(DQK);
   extern __shared__ __align__(16) float fa_smem[];
-  float* qs = fa_smem;                      // [D][kQStride]
-  float* ks = qs + D * kQStride;            // [D][kKStride]
-  float* vs = ks + keys_floats(D);          // [kBKV][Dv]
-  float* ps = vs + kBKV * Dv;               // [kBKV][kQStride]
+  float* const qs = fa_smem;                 // [DQK][kFBQ]
+  float* const ks = qs + DQK * kFBQ;         // 2 x [kFBK][KS]
+  float* const vs = ks + 2 * kFBK * KS;      // [kFBK][DV]
+  float* const ps = vs + kFBK * DV;          // [kFBK][kPStride]
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int qi = gridDim.x - 1 - blockIdx.x;   // the longest tiles start first
-  const int q0 = qi * kBQ;
-  const size_t head = static_cast<size_t>(blockIdx.y) * S;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rg = 2 * warp + lane / 16, cg = lane % 16;
+  const int qi = gridDim.y - 1 - blockIdx.y;   // the longest tiles start first
+  const int q0 = qi * kFBQ, r0 = q0 + kFRows * rg;
+  const size_t head = static_cast<size_t>(blockIdx.x) * S;
+  const int n_kv = (min(q0 + kFBQ, S) - 1) / kFBK + 1;   // key tiles up to the diagonal
 
-  for (int i = tid; i < kBQ * D; i += kFAThreads) {
-    const int r = i / D, d = i % D;
-    qs[d * kQStride + r] = q0 + r < S ? q[(head + q0 + r) * D + d] : 0.0f;
+  // this thread's 16-byte pieces of a key (value) tile: column piece tid % kK4
+  // (kV4) of rows tid / kK4 + (kFAThreads / kK4) i; pieces past D (Dv) or rows
+  // past S are zero-filled
+  auto load_k = [&](int t) {
+    const int k0 = t * kFBK, c = tid % kK4;
+    const bool col_in = 4 * c < D;
+    float* const kt = ks + (t & 1) * kFBK * KS;
+#pragma unroll
+    for (int i = 0; i < kFBK * kK4 / kFAThreads; ++i) {
+      const int r = tid / kK4 + (kFAThreads / kK4) * i;
+      const bool in = col_in && k0 + r < S;
+      cp_async16(kt + r * KS + 4 * c, k + (head + (in ? k0 + r : 0)) * D + (in ? 4 * c : 0), in);
+    }
+    cp_async_commit();
+  };
+  auto load_v = [&](int t) {
+    const int k0 = t * kFBK, c = tid % kV4;
+    const bool col_in = 4 * c < Dv;
+#pragma unroll
+    for (int i = 0; i < kFBK * kV4 / kFAThreads; ++i) {
+      const int r = tid / kV4 + (kFAThreads / kV4) * i;
+      const bool in = col_in && k0 + r < S;
+      cp_async16(vs + r * DV + 4 * c, v + (head + (in ? k0 + r : 0)) * Dv + (in ? 4 * c : 0), in);
+    }
+    cp_async_commit();
+  };
+
+  load_k(0);
+  // the queries, transposed: a warp takes 32 consecutive rows of one 16-byte
+  // column piece, so its stores are conflict-free
+  for (int i = tid; i < kFBQ * kK4; i += kFAThreads) {
+    const int r = i % kFBQ, c = i / kFBQ;
+    const float4 a = q0 + r < S && 4 * c < D
+                         ? *reinterpret_cast<const float4*>(q + (head + q0 + r) * D + 4 * c)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    qs[(4 * c) * kFBQ + r] = a.x;
+    qs[(4 * c + 1) * kFBQ + r] = a.y;
+    qs[(4 * c + 2) * kFBQ + r] = a.z;
+    qs[(4 * c + 3) * kFBQ + r] = a.w;
   }
 
-  float m[4], l[4], acc[4][8];
+  // exp(x - m) = 2^(x c - m c) with c = scale log2e, on the raw scores
+  const float c = __fmul_rn(scale, kLog2e);
+  float m[kFRows], l[kFRows], acc[kFRows][4 * kNH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kFRows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4 * kNH; ++j) acc[i][j] = 0.0f;
   }
 
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int n_kv = q_last / kBKV + 1;
   for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kBKV;
-    __syncthreads();   // the previous tile's keys, values and p are consumed
-    for (int i = tid; i < kBKV * D; i += kFAThreads) {
-      const int r = i / D, d = i % D;
-      ks[d * kKStride + r] = k0 + r < S ? k[(head + k0 + r) * D + d] : 0.0f;
-    }
-    for (int i = tid; i < kBKV * Dv; i += kFAThreads) {
-      const int r = i / Dv, c = i % Dv;
-      vs[r * Dv + c] = k0 + r < S ? v[(head + k0 + r) * Dv + c] : 0.0f;
-    }
-    __syncthreads();
+    const int k0 = t * kFBK;
+    cp_async_wait<0>();   // K(t), the only load in flight
+    __syncthreads();      // K(t) (and the queries) visible; K(t - 1), V(t - 1), p consumed
+    load_v(t);
+    if (t + 1 < n_kv) load_k(t + 1);
+    const float* const kt = ks + (t & 1) * kFBK * KS;
+    // a warp whose 16 rows all precede this tile's keys (the upper of the two
+    // tiles across the diagonal) has nothing to add: it skips both products,
+    // and its masked scores leave m, l and acc as they are
+    const bool idle = k0 > q0 + 16 * warp + 15;
 
-    // scores of rows 4 ty + i against keys k0 + tx + 16 j
-    float s[4][2];
+    // scores of rows r0 + i against keys k0 + cg + 16 j
+    float s[kFRows][kFKeys];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&qs[d * kQStride + ty * 4]);
-      const float b0 = ks[d * kKStride + tx], b1 = ks[d * kKStride + tx + 16];
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    for (int i = 0; i < kFRows; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = __fmaf_rn(av[i], b0, s[i][0]);
-        s[i][1] = __fmaf_rn(av[i], b1, s[i][1]);
-      }
-    }
-
-    float alpha[4];
+      for (int j = 0; j < kFKeys; ++j) s[i][j] = 0.0f;
+    if (!idle) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
+      for (int d = 0; d < DQK; d += 4) {
+        float4 kb[kFKeys];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        s[i][j] = qpos >= kpos ? __fmul_rn(s[i][j], scale) : kNegInf;
-      }
-      const float m_new = fmaxf(m[i], group_max(fmaxf(s[i][0], s[i][1])));
-      const float p0 = expf(__fsub_rn(s[i][0], m_new));
-      const float p1 = expf(__fsub_rn(s[i][1], m_new));
-      alpha[i] = expf(__fsub_rn(m[i], m_new));
-      l[i] = __fmaf_rn(l[i], alpha[i], group_sum(__fadd_rn(p0, p1)));
-      m[i] = m_new;
-      ps[tx * kQStride + ty * 4 + i] = p0;
-      ps[(tx + 16) * kQStride + ty * 4 + i] = p1;
-    }
-    __syncthreads();
-
+        for (int j = 0; j < kFKeys; ++j)
+          kb[j] = *reinterpret_cast<const float4*>(kt + (cg + 16 * j) * KS + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) {
+          const float4 a0 = *reinterpret_cast<const float4*>(qs + (d + e) * kFBQ + kFRows * rg);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(qs + (d + e) * kFBQ + kFRows * rg + 4);
+          const float av[kFRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          float bv[kFKeys];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha[i]);
-    for (int c = 0; c < kBKV; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(&ps[c * kQStride + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+          for (int j = 0; j < kFKeys; ++j)
+            bv[j] = e == 0 ? kb[j].x : e == 1 ? kb[j].y : e == 2 ? kb[j].z : kb[j].w;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = tx + 16 * j;
-        if (col < Dv) {
-          const float vv = vs[c * Dv + col];
+          for (int i = 0; i < kFRows; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = __fmaf_rn(pv[i], vv, acc[i][j]);
+            for (int j = 0; j < kFKeys; ++j) s[i][j] = __fmaf_rn(av[i], bv[j], s[i][j]);
         }
       }
     }
-  }
+    if (k0 + kFBK - 1 > q0) {   // a tile across the diagonal: keys after the query
+#pragma unroll
+      for (int i = 0; i < kFRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kFKeys; ++j)
+          if (k0 + cg + 16 * j > r0 + i) s[i][j] = kNegInf;
+    }
+    float alpha[kFRows];
+#pragma unroll
+    for (int i = 0; i < kFRows; ++i) {
+      // the new row maximum of the raw scores; scale > 0 keeps the order
+      const float x = group_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float m_new = fmaxf(m[i], x);
+      const float mc = __fmul_rn(m_new, c);
+      alpha[i] = ex2(__fmaf_rn(m[i], c, -mc));
+      m[i] = m_new;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kFKeys; ++j) {
+        s[i][j] = ex2(__fmaf_rn(s[i][j], c, -mc));
+        sum = __fadd_rn(sum, s[i][j]);
+      }
+      l[i] = __fmaf_rn(l[i], alpha[i], sum);   // this thread's keys only
+    }
+#pragma unroll
+    for (int j = 0; j < kFKeys; ++j) {
+      float* row = ps + (cg + 16 * j) * kPStride + kFRows * rg;
+      *reinterpret_cast<float4*>(row) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(row + 4) = make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    if (t + 1 < n_kv)
+      cp_async_wait<1>();   // V(t); K(t + 1) may still fly
+    else
+      cp_async_wait<0>();
+    __syncthreads();        // V(t) and p visible
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    for (int i = 0; i < kFRows; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx + 16 * j;
-      if (col < Dv) out[(head + row) * Dv + col] = __fdiv_rn(acc[i][j], denom);
+      for (int j = 0; j < 4 * kNH; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha[i]);
+    if (!idle) {
+#pragma unroll 8
+      for (int key = 0; key < kFBK; ++key) {
+        const float4 p0 = *reinterpret_cast<const float4*>(ps + key * kPStride + kFRows * rg);
+        const float4 p1 = *reinterpret_cast<const float4*>(ps + key * kPStride + kFRows * rg + 4);
+        const float pv[kFRows] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+        float vv[4 * kNH];
+#pragma unroll
+        for (int h = 0; h < kNH; ++h)
+          *reinterpret_cast<float4*>(vv + 4 * h) =
+              *reinterpret_cast<const float4*>(vs + key * DV + 64 * h + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < kFRows; ++i)
+#pragma unroll
+          for (int j = 0; j < 4 * kNH; ++j) acc[i][j] = __fmaf_rn(pv[i], vv[j], acc[i][j]);
+      }
     }
   }
+
+  // epilogue: the row group's partial sums, then out = acc / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < kFRows; ++i) {
+    const float den = fmaxf(group_sum(l[i]), 1e-30f);
+    const int row = r0 + i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int h = 0; h < kNH; ++h) {
+      const int col = 64 * h + 4 * cg;
+      if (col < Dv)
+        *reinterpret_cast<float4*>(out + (head + row) * Dv + col) = make_float4(
+            __fdiv_rn(acc[i][4 * h], den), __fdiv_rn(acc[i][4 * h + 1], den),
+            __fdiv_rn(acc[i][4 * h + 2], den), __fdiv_rn(acc[i][4 * h + 3], den));
+    }
+  }
+}
+
+template <int DQK, int DV>
+int launch_f32_for(const void* q, const void* k, const void* v, int BH, int S, int D, int Dv,
+                   float scale, void* out, cudaStream_t stream) {
+  constexpr int kBytes = f32_smem_bytes(DQK, DV);
+  // once per instantiation, before any CUDA-graph capture can be running
+  static cudaError_t raised = cudaFuncSetAttribute(
+      flash_attention_f32<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (raised != cudaSuccess) return static_cast<int>(raised);
+  const dim3 grid(BH, (S + kFBQ - 1) / kFBQ);
+  flash_attention_f32<DQK, DV><<<grid, kFAThreads, kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      S, D, Dv, scale, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* q, const void* k, const void* v, int BH, int S, int D, int Dv,
                float scale, void* out, cudaStream_t stream) {
-  // raise the kernel's shared-memory limit once, to the most any D, Dv <= 128
-  // needs (so a later call, which may be under CUDA-graph capture, sets nothing)
-  static cudaError_t raised = cudaFuncSetAttribute(
-      flash_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      flash_smem_bytes(kMaxDv, kMaxDv));
-  if (raised != cudaSuccess) return static_cast<int>(raised);
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_attention_f32<<<grid, kFAThreads, flash_smem_bytes(D, Dv), stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      S, D, Dv, scale, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  // 16-byte pieces: the wrapper pads D and Dv to multiples of 4 and aligns
+  const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  if (any % 16 || D % 4 || Dv % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 64)
+    return Dv <= 64 ? launch_f32_for<64, 64>(q, k, v, BH, S, D, Dv, scale, out, stream)
+                    : launch_f32_for<64, 128>(q, k, v, BH, S, D, Dv, scale, out, stream);
+  return Dv <= 64 ? launch_f32_for<128, 64>(q, k, v, BH, S, D, Dv, scale, out, stream)
+                  : launch_f32_for<128, 128>(q, k, v, BH, S, D, Dv, scale, out, stream);
 }
 
 // -- bfloat16: the Hopper kernel -------------------------------------------------
@@ -229,7 +377,6 @@ constexpr int kStages = 2;           // K/V ring depth
 constexpr int kSm90Threads = 384;    // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr int kConsumers = 256;
 constexpr int kHalf = kTile * 128;   // bytes of one 64-column half of a 128-row tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of flash_attention_sm90<DQK, DV>, in bytes from a 1024-aligned
 // base: Q [DQK/64 halves][128][64], then per stage K [DQK/64][128][64] and
@@ -261,15 +408,6 @@ struct PV<64> {
     hopper::wgmma_m64n64k16_rs_tb(o, a, b);
   }
 };
-
-// 2^x on the special-function unit (ex2.approx.ftz.f32): subnormal results
-// flush to zero, and the rounding differs from expf's; the bf16 limit covers
-// both (a p below 2^-126 is nothing beside the row's largest, which is 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -482,8 +620,9 @@ int launch_bf16(const void* q, const void* k, const void* v, int BH, int S, int 
 
 using namespace repro_torch;
 
-// bf16: 0 for float32 q, k, v and out, 1 for bfloat16 (then D and Dv multiples
-// of 8, the pointers 16-byte aligned). D, Dv <= 128, BH <= 65535.
+// bf16: 0 for float32 q, k, v and out (then D and Dv multiples of 4), 1 for
+// bfloat16 (then multiples of 8); the pointers 16-byte aligned. D, Dv <= 128,
+// BH <= 65535.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, int bf16,
                                       int BH, int S, int D, int Dv, float scale, void* out,
                                       void* stream) {

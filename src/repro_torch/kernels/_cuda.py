@@ -56,6 +56,8 @@ _SIGNATURES = {
     "flash_attention_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P),
     "probe_launch": (_P, _I, _P, _P),
 }
+# Queries beside the launchers: the bytes of shared memory a launcher asks for.
+_QUERIES = {"pop_mlp_correct_mc_smem_bytes": (_P, _I)}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -128,7 +130,7 @@ def library() -> ctypes.CDLL:
         if not build_info:
             build()
         lib = ctypes.CDLL(str(Path(build_info["dir"]) / LIBRARY))
-        for fn_name, argtypes in _SIGNATURES.items():
+        for fn_name, argtypes in {**_SIGNATURES, **_QUERIES}.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

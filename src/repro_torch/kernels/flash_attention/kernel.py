@@ -14,7 +14,10 @@ launch each:
   pads D and Dv up to multiples of 8 with zero columns (:func:`tma_operands`)
   and keeps the scale of the unpadded D: the zeros add exact zeros to every
   score and output column, and the output is sliced back.
-* float32 runs a SIMT kernel on the float32 pipe.
+* float32 runs a SIMT kernel on the float32 pipe (register tiles of 8
+  query rows × 4 keys and 8 rows × 8 output columns, K and V tiles by
+  ``cp.async``). Its 16-byte pieces want rows of a multiple of 16 bytes
+  too: the wrapper pads D and Dv to multiples of 4 the same way.
 
 The source's header says what bounds each on the card.
 
@@ -33,8 +36,7 @@ from .ref import flash_attention_ref
 MAX_DV = 128     # csrc/flash_attention.cu kMaxDv: accumulator columns per row
 MAX_D = 128      # query/key width the kernels' shared memory is sized for
 QKV_TYPES = {torch.float32: 0, torch.bfloat16: 1}
-TMA_ALIGN = 16   # bytes: TMA's global addresses and row strides are multiples of it
-TMA_COLS = 8     # bf16 columns in TMA_ALIGN bytes
+TMA_ALIGN = 16   # bytes: the kernels' global addresses and row strides are multiples of it
 
 # The kernel's plain PyTorch version (same arguments; the sums and the
 # softmax run in another order).
@@ -49,14 +51,15 @@ def check_blocks(S: int, block_q: int, block_k: int) -> None:
 
 
 def tma_operands(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Each bf16 tensor as the kernel's TMA loads take it: its last
-    dimension padded with zero columns to a multiple of 8 (16 bytes) and
-    its storage 16-byte aligned; a tensor that already is comes back as it
-    is."""
+    """Each tensor as the kernels' 16-byte loads take it (TMA in bf16,
+    ``cp.async`` in float32): its last dimension padded with zero columns
+    to a multiple of 16 bytes (8 bf16 or 4 float32 columns) and its storage
+    16-byte aligned; a tensor that already is comes back as it is."""
     out = []
     for t in ts:
         w = t.shape[-1]
-        wp = -(-w // TMA_COLS) * TMA_COLS
+        cols = TMA_ALIGN // t.element_size()
+        wp = -(-w // cols) * cols
         if wp != w or t.data_ptr() % TMA_ALIGN:
             p = t.new_zeros((*t.shape[:-1], wp))
             p[..., :w] = t
@@ -67,8 +70,8 @@ def tma_operands(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 def flash_attention_call(q, k, v) -> tuple[_cuda.Launch, torch.Tensor]:
     """The checked launch of the kernel on CUDA tensors, and the (BH, S,
-    Dv) output (q's type) it writes: for bfloat16 a view of the padded
-    output the launch writes (see :func:`tma_operands`)."""
+    Dv) output (q's type) it writes: a view of the padded output the launch
+    writes where Dv is padded (see :func:`tma_operands`)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention launches on CUDA tensors, got {dev}")
@@ -83,8 +86,7 @@ def flash_attention_call(q, k, v) -> tuple[_cuda.Launch, torch.Tensor]:
     _cuda.check(k, "k", q.dtype, (BH, S, D), dev)
     _cuda.check(v, "v", q.dtype, (BH, S, Dv), dev)
     scale = 1.0 / math.sqrt(D)
-    if q.dtype == torch.bfloat16:
-        q, k, v = tma_operands(q, k, v)
+    q, k, v = tma_operands(q, k, v)
     out = torch.empty((BH, S, v.shape[-1]), dtype=q.dtype, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), QKV_TYPES[q.dtype], BH, S, q.shape[-1],
             v.shape[-1], scale, out.data_ptr())

@@ -22,10 +22,18 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
-from ..pop_mlp.kernel import (check_deltas, net_desc, out_mask_or_ones,
-                              pop_mlp_correct_mc_plain, pop_mlp_correct_plain)
+from ..pop_mlp.kernel import (MAX_WIDTH, POP_TILE, check_deltas, net_desc,
+                              out_mask_or_ones, pop_mlp_correct_mc_plain,
+                              pop_mlp_correct_plain)
 from ..pop_variation.kernel import (VARIATION_OPERANDS, pop_variation_plain,
                                     variation_operands)
+
+
+def ndev_smem_bytes(G: int, n_dev: int) -> int:
+    """Dynamic shared memory of the ``n_dev`` branch (``csrc/common.cuh``
+    ``fitness_mc_smem_bytes``): genome tile, delta table, gene bounds,
+    output mask and per-block counts."""
+    return 4 * (POP_TILE * G + n_dev * G + G + MAX_WIDTH + POP_TILE * n_dev)
 
 
 def pop_generation_plain(a_rows, b_rows, do_rows, table_low, table_high,
@@ -89,7 +97,7 @@ def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
                               (*head, desc, children.data_ptr(), counts.data_ptr()),
                               (*keep, counts))
     else:
-        d, _ = check_deltas(deltas, o["high"], L, G, dev)
+        d, _ = check_deltas(deltas, o["high"], L, G, dev, lambda K: ndev_smem_bytes(G, K))
         counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=dev)
         launch = _cuda.Launch("pop_generation_kernel_mc", "pop_generation_mc_launch",
                               (*head, d.data_ptr(), d.shape[1], desc, children.data_ptr(),

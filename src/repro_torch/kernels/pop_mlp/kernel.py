@@ -5,9 +5,12 @@
 kernel.py:pop_mlp_correct``: (P, G) int32 genomes × (S, n_in) int32 samples
 × (S,) int32 labels → (P,) int32 correct counts of the integer approximate
 MLP. ``pop_mlp_correct_mc`` replaces ``pop_mlp_correct_mc`` there: the same
-over K device instances given by a (K, G) delta table → (P, K) counts.
-The source's header says what bounds them on the card and how they are
-laid out.
+over K device instances given by a (K, G) delta table → (P, K) counts,
+from tables of per-instance weight multipliers that each block builds in
+shared memory (``ref.pop_mlp_correct_mc_tables`` is their arithmetic on the
+CPU; the launcher's ``pop_mlp_correct_mc_smem_bytes`` gives their size,
+which the wrapper checks). The source's header says what bounds them on
+the card and how they are laid out.
 
 Both take a leading lane axis on every operand: L independent problems of
 one layout scored in one launch, the lane on the grid's z axis (a single
@@ -24,11 +27,10 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
+from .ref import MAX_LAYERS, MAX_WIDTH
 from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_tiled
 from .ref import pop_mlp_correct_tiled
 
-MAX_LAYERS = 4   # csrc/common.cuh kMaxLayers
-MAX_WIDTH = 32   # csrc/common.cuh kMaxWidth
 POP_TILE = 8     # csrc/common.cuh kPopTile
 
 
@@ -130,7 +132,9 @@ def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
         launch = _cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch",
                               (*head, desc, counts.data_ptr()), (*keep, counts))
     else:
-        d, hi = check_deltas(dev, gene_high, L, G, device)
+        lib = _cuda.library()
+        d, hi = check_deltas(dev, gene_high, L, G, device,
+                             lambda K: lib.pop_mlp_correct_mc_smem_bytes(desc, K))
         counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=device)
         launch = _cuda.Launch("pop_mlp_correct_mc", "pop_mlp_correct_mc_launch",
                               (*head, d.data_ptr(), hi.data_ptr(), d.shape[1], desc,
@@ -168,9 +172,11 @@ def pop_mlp_correct(pop, x_int, labels, *, spec: GenomeSpec,
     return counts
 
 
-def check_deltas(dev, gene_high, L: int, G: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def check_deltas(dev, gene_high, L: int, G: int, device,
+                 smem_bytes) -> tuple[torch.Tensor, torch.Tensor]:
     """The (L, K, G) delta tables and the (L, G) gene bounds as contiguous
-    int32 tensors on ``device`` (K >= 1), checked."""
+    int32 tensors on ``device`` (K >= 1), checked; ``smem_bytes(K)``, the
+    kernel's shared memory per block at K instances, must fit the card."""
     if dev.dim() != 3 or dev.shape[1] < 1:
         raise ValueError(f"dev must be an (L, K, G) delta table with K >= 1, got "
                          f"shape {tuple(dev.shape)}")
@@ -180,16 +186,9 @@ def check_deltas(dev, gene_high, L: int, G: int, device) -> tuple[torch.Tensor, 
     hi = gene_high.to(dtype=torch.int32).contiguous()
     _cuda.check(d, "dev", torch.int32, (L, dev.shape[1], G), device)
     _cuda.check(hi, "gene_high", torch.int32, (L, G), device)
-    _cuda.check_smem(mc_smem_bytes(G, d.shape[1]), device,
+    _cuda.check_smem(smem_bytes(d.shape[1]), device,
                      f"a device-instance kernel at G={G}, K={d.shape[1]}")
     return d, hi
-
-
-def mc_smem_bytes(G: int, n_dev: int) -> int:
-    """Dynamic shared memory of the device-instance kernels (``csrc/
-    common.cuh`` ``fitness_mc_smem_bytes``): genome tile, delta table, gene
-    bounds, output mask and per-block counts."""
-    return 4 * (POP_TILE * G + n_dev * G + G + MAX_WIDTH + POP_TILE * n_dev)
 
 
 def pop_mlp_correct_mc(pop, x_int, labels, dev, gene_high, *,

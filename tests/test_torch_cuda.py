@@ -1,6 +1,11 @@
 """Each CUDA kernel against its plain version on the card (marker
 ``cuda``): pendigits-like shapes, row/sample bounds, device-variation
-delta tables with K = 1 and 6, exact equality; the lane axis of the GA
+delta tables with K = 1 and 6, exact equality; K4 at the paper's and the
+suite's topologies (in its compiled widths), at a smaller one padded into
+them and at two its general kernel runs, K = 1 and 50, exponents at both
+ends of their range, ragged lanes, and the largest K the card admits
+(where padded tables no longer fit and the general kernel runs); the lane
+axis of the GA
 kernels at L = 1 and 3 (unequal per-lane sample counts, a shared row
 bound), one launch for all lanes; the probe kernel and its memo; the LM-side kernels at
 small and ragged shapes (the state scan bit for bit, the pow2 product
@@ -139,6 +144,104 @@ def test_wrappers_reject_bad_inputs(card):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, 2, card)[:, :5], high, spec=spec)
     with pytest.raises(ValueError, match="shared memory"):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, 200, card), high, spec=spec)
+
+
+# K4 at the paper's five topologies and the suite's padded one (all run in its
+# compiled widths), a smaller one padded into them, and two that only its
+# general kernel runs (a hidden layer wider than the compiled widths', 3 layers)
+MC_TOPOS = [(16, 5, 10), (21, 5, 10), (10, 3, 2), (21, 3, 3), (11, 2, 6), (11, 4, 7),
+            (6, 4, 3), (5, 4, 3, 2), (6, 7, 3)]
+
+
+def _mc_case(dev, sizes, K, P=40, S=700, seed=0):
+    """A population whose exponent genes sit at 0 in some rows and at
+    max_exp in others (the deltas push them past both ends), samples,
+    labels and a (K, G) delta table."""
+    spec = GenomeSpec(MLPTopology(sizes))
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(spec.low, spec.high, (P, spec.n_genes)).astype(np.int32)
+    pop[0::3, spec.is_exp] = 0
+    pop[1::3, spec.is_exp] = spec.topo.max_exp
+    x = rng.integers(0, 2**spec.topo.input_bits, (S, sizes[0])).astype(np.int32)
+    y = rng.integers(0, sizes[-1], S).astype(np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return spec, t(pop), t(x), t(y), _deltas(spec, K, dev, seed=seed), t(spec.high)
+
+
+@pytest.mark.parametrize("K", [1, 50])
+@pytest.mark.parametrize("sizes", MC_TOPOS)
+def test_mc_kernel_every_topology_equals_plain(card, sizes, K):
+    """K4 against its plain version with row and sample bounds and a masked
+    output column; with all-zero deltas it equals K1."""
+    spec, pop, x, y, dev, high = _mc_case(card, sizes, K, seed=len(sizes) + K)
+    om = torch.ones(sizes[-1], dtype=torch.int32, device=card)
+    om[-1] = 0
+    for rows, samples, mask in ((40, None, None), (23, 555, om)):
+        n = torch.tensor(rows, dtype=torch.int32, device=card)
+        kw = dict(spec=spec, n_valid_rows=n, n_valid_samples=samples, out_mask=mask)
+        before = _cuda.LAUNCHES["pop_mlp_correct_mc"]
+        got = pop_mlp_correct_mc(pop, x, y, dev, high, **kw)
+        assert _cuda.LAUNCHES["pop_mlp_correct_mc"] == before + 1
+        want = pop_mlp_correct_mc_plain(pop, x, y, dev=dev, gene_high=high, **kw)
+        assert tuple(got.shape) == (40, K) and torch.equal(got, want)
+        assert (got[rows:] == 0).all()
+        nominal = pop_mlp_correct(pop, x, y, **kw)
+        assert torch.equal(got[:, 0], nominal)
+        assert torch.equal(pop_mlp_correct_mc(pop, x, y, torch.zeros_like(dev), high, **kw),
+                           nominal[:, None].expand(-1, K))
+
+
+@pytest.mark.parametrize("sizes", [(21, 5, 10), (5, 4, 3, 2)])
+def test_mc_kernel_lanes_with_ragged_samples_equal_plain(card, sizes):
+    """Three lanes with their own sample counts (labels −1 past them), output
+    masks and delta tables, and a row bound, in one launch."""
+    L, K = 3, 9
+    cases = [_mc_case(card, sizes, K, P=30, S=900, seed=i) for i in range(L)]
+    spec = cases[0][0]
+    pop, x, y, dev, high = (torch.stack([c[i] for c in cases]) for i in range(1, 6))
+    samp = torch.tensor([900, 311, 5], dtype=torch.int32, device=card)
+    for i in range(L):
+        y[i, int(samp[i]):] = -1
+    om = torch.ones((L, sizes[-1]), dtype=torch.int32, device=card)
+    om[1, 0] = 0
+    n = torch.tensor(17, dtype=torch.int32, device=card)
+    kw = dict(spec=spec, n_valid_rows=n, n_valid_samples=samp, out_mask=om)
+    got = pop_mlp_correct_mc(pop, x, y, dev, high, **kw)
+    want = pop_mlp_correct_mc_plain(pop, x, y, dev=dev, gene_high=high, **kw)
+    assert tuple(got.shape) == (L, 30, K) and torch.equal(got, want)
+    assert (got[:, 17:] == 0).all()
+    assert torch.equal(pop_mlp_correct_mc(pop, x, y, torch.zeros_like(dev), high, **kw),
+                       pop_mlp_correct(pop, x, y, **kw)[..., None].expand(-1, -1, K))
+
+
+@pytest.mark.parametrize("sizes", [(16, 5, 10), (21, 5, 10), (6, 4, 3)])
+def test_mc_kernel_smem_check_agrees_with_its_launcher(card, sizes):
+    """The size the wrapper checks is its launcher's
+    (``pop_mlp_correct_mc_smem_bytes``), which ``ref.mc_smem_bytes``
+    computes for the card's limit at every K; at the largest K the card
+    admits, the kernel launches and equals its plain version, and one more
+    instance is refused."""
+    import ctypes
+
+    from repro_torch.kernels.pop_mlp.kernel import net_desc
+    from repro_torch.kernels.pop_mlp.ref import mc_smem_bytes
+
+    spec = GenomeSpec(MLPTopology(sizes))
+    desc = _cuda.host_ints(net_desc(spec))
+    lib = _cuda.library()
+    launcher = lambda K: lib.pop_mlp_correct_mc_smem_bytes(ctypes.cast(desc, ctypes.c_void_p), K)
+    limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    for K in (1, 8, 50, 120, 200, 400):
+        assert launcher(K) == mc_smem_bytes(sizes, K, limit)
+    k_max = 1
+    while launcher(k_max + 1) <= limit:
+        k_max += 1
+    spec, pop, x, y, dev, high = _mc_case(card, sizes, k_max, P=4, S=160, seed=k_max)
+    got = pop_mlp_correct_mc(pop, x, y, dev, high, spec=spec)
+    assert torch.equal(got, pop_mlp_correct_mc_plain(pop, x, y, spec=spec, dev=dev,
+                                                     gene_high=high))
+    with pytest.raises(ValueError, match="shared memory"):
+        pop_mlp_correct_mc(pop, x, y, _deltas(spec, k_max + 1, card), high, spec=spec)
 
 
 def _lanes(dev, L, P=40, S=1100, seed=0):
@@ -359,6 +462,24 @@ def test_flash_attention_kernel_equals_plain(card, dtype, BH, S, D, Dv):
     else:
         limit = flash_attention_bf16_limit(q, k, v, want)
         assert ((got.float() - want.float()).abs() <= limit).all()
+
+
+@pytest.mark.parametrize("D,Dv", [(128, 128), (96, 64), (64, 64), (7, 5)])
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 4096])
+def test_flash_attention_f32_kernel_equals_plain(card, S, D, Dv):
+    """The float32 kernel over several heads at sequence lengths around its
+    64-key and 128-query tiles and at qwen3-14b's prefill length, at the
+    widths it is compiled for (Dv up to 64 and up to 128) and at widths the
+    wrapper pads to multiples of 4, within 3e-4."""
+    BH = 3
+    g = torch.Generator(device=card).manual_seed(S + D + Dv)
+    q, k, v = (torch.randn((BH, S, d), generator=g, device=card) for d in (D, D, Dv))
+    before = _cuda.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, block_q=S, block_k=S)
+    assert _cuda.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_plain(q, k, v)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
 
 
 def test_lm_wrappers_reject_bad_inputs(card):

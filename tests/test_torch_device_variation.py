@@ -5,6 +5,9 @@ and of both CUDA kernels' plain versions (against the Pallas kernels in
 interpret mode), the float32 order of the robust objective, and
 ``GATrainer.run`` with ``variation_mode="mean"``/``"worst"`` under every
 dedup mode and generation backend; tolerance 0."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
@@ -24,6 +27,9 @@ from repro_torch.kernels.backend import BackendPolicy
 from repro_torch.kernels.pop_generation import (pop_generation_kernel,
                                                 pop_generation_plain,
                                                 population_generation)
+from repro_torch.kernels.pop_mlp.ref import (H100_SMEM_OPTIN, MC_BUCKETS, mc_bucket,
+                                             mc_layout, mc_smem_bytes, mc_tables,
+                                             pop_mlp_correct_mc_tables)
 from repro_torch.kernels.pop_mlp import (population_correct, pop_mlp_correct_mc,
                                          pop_mlp_correct_mc_plain)
 from test_torch_interop import (NO_COUNTS, assert_bits_equal, assert_states_equal,
@@ -180,6 +186,163 @@ def test_mc_fitness_requires_gene_high_and_rejects_jnp():
     with pytest.raises(RuntimeError, match="CUDA"):
         population_correct(pop, x, y, spec=spec, backend="kernel", dev=dev,
                            gene_high=torch.as_tensor(spec.high))
+
+
+# -- K4's arithmetic on the CPU (ref.pop_mlp_correct_mc_tables) -------------------
+
+# breast_cancer's and cardio's topologies (padded into the compiled widths of
+# pendigits and of the suite), pendigits' and the suite's padded one, and one
+# that only the general kernel runs
+MC_TABLE_TOPOS = [(10, 3, 2), (21, 3, 3), (16, 5, 10), (21, 5, 10), (5, 4, 3, 2)]
+
+
+def _edge_case(sizes, K, P=10, S=150, seed=0):
+    """A population whose exponent genes sit at 0 (every third row) and at
+    max_exp (the next), one exponent at 33 and one at −2 (shl's zero) in
+    row 2, and deltas that push them past both ends: row 0 zero (the
+    nominal device), row 1 −1 and row 2 +1 on every exponent gene, the rest
+    random in {−1, 0, +1} on them."""
+    spec = tg.GenomeSpec(tg.MLPTopology(sizes))
+    rng = np.random.default_rng(seed)
+    pop = rng.integers(spec.low, spec.high, (P, spec.n_genes)).astype(np.int32)
+    pop[0::3, spec.is_exp] = 0
+    pop[1::3, spec.is_exp] = spec.topo.max_exp
+    exps = np.flatnonzero(spec.is_exp)
+    pop[2, exps[0]], pop[2, exps[-1]] = 33, -2
+    dev = rng.integers(-1, 2, (K, spec.n_genes)).astype(np.int32)
+    dev[1:2], dev[2:3] = -1, 1
+    dev = dev * spec.is_exp
+    dev[0] = 0
+    x01 = rng.random((S, sizes[0])).astype(np.float32)
+    y = rng.integers(0, sizes[-1], S).astype(np.int32)
+    return spec, pop, dev, x01, y
+
+
+@pytest.mark.parametrize("K", [1, 13])
+@pytest.mark.parametrize("sizes", MC_TABLE_TOPOS)
+def test_mc_tables_arithmetic_matches_interpret_kernel(sizes, K):
+    """K4's decomposition (per-(chromosome, instance) signed multipliers,
+    shifted biases and right shifts, read through the compiled widths'
+    padded table layout and through the general kernel's packed one; layer
+    1's ``x & mask`` shared by the instances) against the reference Pallas
+    kernel in interpret mode, bit for bit, with row and sample bounds and a
+    masked output column. The kernel holds the tables of every instance at
+    once, so K = 13 is as much one block's work as K = 1."""
+    spec_t, pop, dev, x01, y = _edge_case(sizes, K, seed=sum(sizes) + K)
+    spec_j = jg.GenomeSpec(jg.MLPTopology(sizes))
+    n_samp = 120
+    y[n_samp:] = -1
+    om = np.ones(sizes[-1], np.int32)
+    om[-1] = 0
+    xj = jq.quantize_inputs(jnp.asarray(x01), 4)
+    xt = tq.quantize_inputs(torch.as_tensor(x01), 4)
+    for rows in (10, 7):
+        ref = np.asarray(j_correct(
+            jnp.asarray(pop), xj, jnp.asarray(y), spec=spec_j, backend="interpret",
+            n_valid_rows=jnp.int32(rows), n_valid_samples=jnp.int32(n_samp),
+            out_mask=jnp.asarray(om), dev=jnp.asarray(dev), gene_high=jnp.asarray(spec_t.high)))
+        for packed in (False, True):
+            got = pop_mlp_correct_mc_tables(
+                torch.as_tensor(pop), xt, torch.as_tensor(y), spec=spec_t,
+                dev=torch.as_tensor(dev), gene_high=torch.as_tensor(spec_t.high),
+                n_valid_rows=rows, n_valid_samples=n_samp, out_mask=torch.as_tensor(om),
+                packed=packed)
+            assert got.dtype == torch.int32 and tuple(got.shape) == (10, K)
+            assert_bits_equal(ref[:rows], got[:rows], f"rows {rows}, packed {packed}")
+            assert (got[rows:] == 0).all()
+
+
+def test_mc_tables_hold_the_clipped_signed_multipliers():
+    """The tables themselves at pendigits (compiled widths: each layer
+    padded to 4 words) and the general kernel's packed layout."""
+    spec, pop, dev, _, _ = _edge_case((16, 5, 10), 3)
+    pop[:, spec.is_exp] = [[0], [6], [3], [0], [6], [3], [0], [6], [3], [0]]
+    pop[:, spec.layers[0].signs.start] = 0   # a weight of sign -1 in every row
+    mult, mask, bias, rsh = mc_tables(torch.as_tensor(pop), torch.as_tensor(dev),
+                                      torch.as_tensor(spec.high), spec=spec)
+    lay = mc_layout((16, 5, 10))
+    assert (lay.wp, lay.np, lay.woff, lay.noff) == (132, 20, (0, 80), (0, 8))
+    assert tuple(mult.shape) == (10, 3, 132) and tuple(bias.shape) == (10, 20)
+    signs = torch.as_tensor(pop[:, spec.layers[0].signs] * 2 - 1)
+    # instance 0 leaves the exponent, instance 1 moves it down, instance 2 up,
+    # each clipped into [0, 6]
+    for row, want in ((0, (0, 0, 1)), (1, (6, 5, 6)), (2, (3, 2, 4))):
+        for k, e in enumerate(want):
+            got = mult[row, k, :80] - ((mult[row, k, :80] >> 31) << 32)
+            assert torch.equal(got, signs[row].long() << e), (row, k)
+    assert (mult[:, :, 130:] == 0).all() and (mask[:, 130:] == 0).all()
+    assert torch.equal(mask[:, :80], torch.as_tensor(pop[:, spec.layers[0].masks]).long())
+    g = pop[0]
+    for l, sl in enumerate(spec.layers):
+        want = (g[sl.biases].astype(np.int64) << g[sl.bshift.start]) & 0xFFFFFFFF
+        assert bias[0, lay.noff[l]:lay.noff[l] + sl.fan_out].tolist() == want.tolist()
+        assert int(rsh[0, l]) == g[sl.rshift.start]
+    general = mc_layout((6, 4, 3), packed=True)
+    assert (general.wp, general.np, general.woff, general.noff) == (36, 7, (0, 24), (0, 4))
+
+
+def test_mc_tables_padded_into_compiled_widths():
+    """breast_cancer's (10, 3, 2) laid out in pendigits' compiled widths:
+    the same layout, each weight at its (input, neuron) slot with the value
+    the packed tables hold, every slot past the net's widths 0."""
+    spec, pop, dev, _, _ = _edge_case((10, 3, 2), 4)
+    args = (torch.as_tensor(pop), torch.as_tensor(dev), torch.as_tensor(spec.high))
+    assert mc_layout((10, 3, 2)) == mc_layout((16, 5, 10))
+    pad, packed = mc_tables(*args, spec=spec), mc_tables(*args, spec=spec, packed=True)
+    lay, own = mc_layout((10, 3, 2)), mc_layout((10, 3, 2), packed=True)
+    for l, (fi, fo) in enumerate(((10, 3), (3, 2))):
+        for t_pad, t_own in ((pad[0], packed[0]), (pad[1][:, None], packed[1][:, None])):
+            slots = t_pad[..., lay.woff[l]:lay.woff[l] + lay.fi[l] * lay.fo[l]].unflatten(
+                -1, (lay.fi[l], lay.fo[l]))
+            assert torch.equal(slots[..., :fi, :fo], t_own[..., own.woff[l]:own.woff[l] + fi * fo]
+                               .unflatten(-1, (fi, fo)))
+            slots[..., :fi, :fo] = 0
+            assert (slots == 0).all()
+        b = pad[2][:, lay.noff[l]:lay.noff[l] + lay.fo[l]]
+        assert torch.equal(b[:, :fo], packed[2][:, own.noff[l]:own.noff[l] + fo])
+        assert (b[:, fo:] == 0).all()
+    assert torch.equal(pad[3], packed[3])
+
+
+def test_mc_buckets_match_the_kernel_source():
+    """The compiled widths listed here are those ``csrc/pop_mlp.cu``
+    compiles, and each of the paper's topologies and the suite's pads into
+    the smallest that holds it."""
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/pop_mlp.cu").read_text()
+    line = re.search(r"constexpr McDims kMcBuckets\[\] = \{(.*)\};", src).group(1)
+    assert tuple(tuple(map(int, b)) for b in re.findall(r"\{(\d+), (\d+), (\d+)\}", line)) \
+        == MC_BUCKETS
+    assert [mc_bucket(s) for s in ((16, 5, 10), (10, 3, 2), (11, 2, 6), (11, 4, 7), (6, 4, 3))] \
+        == [(16, 5, 10)] * 5
+    assert [mc_bucket(s) for s in ((21, 5, 10), (21, 3, 3), (17, 1, 1))] == [(21, 5, 10)] * 3
+    assert [mc_bucket(s) for s in ((22, 5, 10), (16, 6, 10), (16, 5, 11), (5, 4, 3, 2))] \
+        == [None] * 4
+
+
+def test_mc_smem_never_exceeds_the_earlier_layout():
+    """K4's packed tables (the general kernel's) never need more shared
+    memory than the layout they replace (genome tile, delta table, gene
+    bounds; the n_dev branch of the generation kernel keeps it), at any K,
+    for the compiled widths, edge topologies and 300 random ones of up to 4
+    layers of width up to 32; the compiled widths' padded tables run only
+    where they fit the card. So every K that launched before still launches
+    on an H100. K = 200 at pendigits is still past its 232,448 bytes a
+    block."""
+    from repro_torch.kernels.pop_generation.kernel import ndev_smem_bytes
+
+    rng = np.random.default_rng(0)
+    topos = list(MC_BUCKETS) + [(10, 3, 2), (21, 3, 3), (11, 2, 6), (11, 4, 7), (1, 1),
+                                (32, 1), (3, 2), (32, 32), (32, 32, 32, 32, 32), (6, 4, 3),
+                                (5, 4, 3, 2)]
+    topos += [tuple(int(w) for w in rng.integers(1, 33, rng.integers(2, 6)))
+              for _ in range(300)]
+    for sizes in topos:
+        G = tg.GenomeSpec(tg.MLPTopology(sizes)).n_genes
+        for K in (1, 2, 3, 8, 13, 50, 130, 200, 456, 1000, 5000):
+            old = ndev_smem_bytes(G, K)
+            assert mc_smem_bytes(sizes, K, limit=0) <= old, (sizes, K)
+            assert old > H100_SMEM_OPTIN or mc_smem_bytes(sizes, K) <= H100_SMEM_OPTIN, (sizes, K)
+    assert mc_smem_bytes((16, 5, 10), 200) > 232448 >= mc_smem_bytes((16, 5, 10), 130)
 
 
 @pytest.mark.parametrize("K", [1, 6])

@@ -16,7 +16,9 @@ attention with a wrong mask in the late rows of a 2048-token sequence
 The bf16 kernel's TMA loads want rows of a multiple of 16 bytes, so its
 wrapper pads D and Dv with zero columns and keeps the unpadded D's scale:
 here the plain version on the padded operands equals the unpadded call bit
-for bit once sliced back."""
+for bit once sliced back. The float32 kernel's ``cp.async`` pieces want the
+same, and the padded float32 operands give the same attention (1e-6: the
+plain product may sum the extra zeros in another order)."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -150,6 +152,23 @@ def test_zero_padding_for_tma_keeps_the_function(BH, S, D, Dv):
     out = flash_attention_ref(qp, kp, vp, head_dim=D)[..., :Dv]
     assert tuple(out.shape) == (BH, S, Dv) and out.dtype == torch.bfloat16
     assert torch.equal(out, flash_attention_ref(q, k, v))
+
+
+@pytest.mark.parametrize("BH,S,D,Dv", [(3, 200, 7, 5), (2, 129, 1, 13), (2, 64, 34, 100)])
+def test_zero_padding_for_float32_keeps_the_function(BH, S, D, Dv):
+    """The float32 kernel's 16-byte loads take rows of a multiple of 4
+    floats: the padded operands give the same attention once sliced back."""
+    q, k, v = (torch.as_tensor(a) for a in _qkv(BH, S, D, Dv, seed=S + D))
+    qp, kp, vp = tma_operands(q, k, v)
+    Dp, Dvp = -(-D // 4) * 4, -(-Dv // 4) * 4
+    assert tuple(qp.shape) == tuple(kp.shape) == (BH, S, Dp)
+    assert tuple(vp.shape) == (BH, S, Dvp)
+    for t, p in ((q, qp), (k, kp), (v, vp)):
+        assert p.dtype == torch.float32 and p.data_ptr() % 16 == 0
+        assert torch.equal(p[..., :t.shape[-1]], t) and not p[..., t.shape[-1]:].any()
+    out = flash_attention_ref(qp, kp, vp, head_dim=D)[..., :Dv]
+    assert tuple(out.shape) == (BH, S, Dv)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v), rtol=1e-6, atol=1e-6)
 
 
 def test_tma_operands_pass_aligned_tensors_through():
