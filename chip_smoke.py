@@ -10,9 +10,11 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    shared library (nvcc, sm_90a, one compile per source, started
    together, then one link), with ptxas's report (registers, shared
    memory, spills) on both K6 kernels, one line per compiled width, on both
-   K7 kernels and on K4's kernel per compiled set of widths, and K4's
-   shared memory per block as its launcher asks for it (which the wrapper
-   checks, and ``ref.mc_smem_bytes`` must match);
+   K7 kernels, and on the table kernels (K1, K4, K3's n_dev branch) per
+   compiled set of widths, and the table kernels' shared memory per block
+   as their launchers ask for it (which the wrappers check, and
+   ``ref.mc_smem_bytes``, ``ref.k1_smem_bytes`` and
+   ``ref.generation_mc_smem_bytes`` must match);
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
@@ -342,40 +344,55 @@ KERNEL_ENTRIES = {
                         "K6 float32 flash_attention_f32<{0}, {1}>"},
     "pow2_matmul": {r"pow2_matmul_sm90": "K7 bf16 pow2_matmul_sm90",
                     r"pow2_matmul_f32": "K7 float32 pow2_matmul_f32"},
-    "pop_mlp": {r"pop_mlp_correct_mc_kernelILi(\d+)ELi(\d+)ELi(\d+)E":
-                "K4 pop_mlp_correct_mc_kernel<{0}, {1}, {2}>"},
+    "pop_mlp": {r"pop_mlp_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb1E":
+                "K4 pop_mlp_tables_kernel<{0}, {1}, {2}, true>",
+                r"pop_mlp_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0E":
+                "K1 pop_mlp_tables_kernel<{0}, {1}, {2}, false>"},
+    "pop_generation": {r"pop_generation_mc_kernelILi(\d+)ELi(\d+)ELi(\d+)E":
+                       "K3 n_dev pop_generation_mc_kernel<{0}, {1}, {2}>"},
 }
 # The redesigned kernels' times before their redesign, quoted from PERF.md's
 # kernel table (chip_smoke.py's own run before the redesign, NVIDIA H100 80GB
 # HBM3 at 700 W) and printed, labelled so, beside the times this run measures;
 # they are kept out of the kernels line, which holds this run's numbers
-EARLIER_MS = {"pop_mlp_correct_mc": 2.5364, "pop_mlp_correct_mc lanes": 4.4008,
+EARLIER_MS = {"pop_mlp_correct": 0.3962, "pop_mlp_correct lanes": 0.7380,
+              "pop_generation_kernel_mc": 2.4148, "pop_generation_kernel_mc lanes": 4.9892,
+              "pop_mlp_correct_mc": 2.5364, "pop_mlp_correct_mc lanes": 4.4008,
               "flash_attention float32": 9.1310}
 
 
-def mc_launch_smem(sizes, n_dev: int) -> int:
-    """K4's shared memory per block as its launcher asks for it on this
-    card (``pop_mlp_correct_mc_smem_bytes``, which the wrapper checks);
-    raises unless ``ref.mc_smem_bytes`` computes the same for the card's
-    limit."""
+def launch_smem(kernel: str, sizes, n_dev: int = 1) -> int:
+    """A table kernel's shared memory per block as its launcher asks for it
+    on this card (the size its wrapper checks): ``kernel`` "K4"
+    (``pop_mlp_correct_mc_smem_bytes``), "K1" (``pop_mlp_correct_smem_bytes``)
+    or "K3" (the n_dev branch, ``pop_generation_mc_smem_bytes``); raises
+    unless its CPU mirror in ``kernels/pop_mlp/ref.py`` computes the same
+    for the card's limit."""
     import ctypes
 
     import torch
 
     from repro_torch.core.genome import GenomeSpec, MLPTopology
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.pop_mlp import ref
     from repro_torch.kernels.pop_mlp.kernel import net_desc
-    from repro_torch.kernels.pop_mlp.ref import mc_smem_bytes
 
-    desc = _cuda.host_ints(net_desc(GenomeSpec(MLPTopology(sizes))))
-    got = _cuda.library().pop_mlp_correct_mc_smem_bytes(ctypes.cast(desc, ctypes.c_void_p),
-                                                        n_dev)
+    spec = GenomeSpec(MLPTopology(sizes))
+    desc = ctypes.cast(_cuda.host_ints(net_desc(spec)), ctypes.c_void_p)
+    lib = _cuda.library()
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    if got != mc_smem_bytes(sizes, n_dev, limit):
-        raise AssertionError(f"K4 at {sizes}, K={n_dev}: the launcher asks for {got} bytes of "
-                             f"shared memory, ref.mc_smem_bytes gives "
-                             f"{mc_smem_bytes(sizes, n_dev, limit)}")
-    return got
+    got, want = {
+        "K4": (lambda: lib.pop_mlp_correct_mc_smem_bytes(desc, n_dev),
+               lambda: ref.mc_smem_bytes(sizes, n_dev, limit)),
+        "K1": (lambda: lib.pop_mlp_correct_smem_bytes(desc),
+               lambda: ref.k1_smem_bytes(sizes, limit)),
+        "K3": (lambda: lib.pop_generation_mc_smem_bytes(desc, spec.n_genes, n_dev),
+               lambda: ref.generation_mc_smem_bytes(sizes, spec.n_genes, n_dev, limit)),
+    }[kernel]
+    if got() != want():
+        raise AssertionError(f"{kernel} at {sizes}, K={n_dev}: the launcher asks for {got()} "
+                             f"bytes of shared memory, its CPU mirror gives {want()}")
+    return got()
 
 
 def sdpa(q, k, v):
@@ -1081,9 +1098,13 @@ def main() -> int:
     from repro_torch.kernels.pow2_matmul.kernel import SM90_SMEM_BYTES
     print(f"[build] K7 bf16 pow2_matmul_sm90: {SM90_SMEM_BYTES} bytes of dynamic shared "
           f"memory per block")
-    print(f"[build] K4 pop_mlp_correct_mc: dynamic shared memory per block from its launcher "
-          f"at K={K_DEV}: {mc_launch_smem((16, 5, 10), K_DEV)} bytes at pendigits (16, 5, 10), "
-          f"{mc_launch_smem((21, 5, 10), K_DEV)} at the suite's (21, 5, 10)")
+    for name, kernel, n_dev in (("K4 pop_mlp_correct_mc", "K4", K_DEV),
+                                ("K3 n_dev pop_generation_kernel_mc", "K3", K_DEV),
+                                ("K1 pop_mlp_correct", "K1", 1)):
+        print(f"[build] {name}: dynamic shared memory per block from its launcher at "
+              f"K={n_dev}: {launch_smem(kernel, (16, 5, 10), n_dev)} bytes at pendigits "
+              f"(16, 5, 10), {launch_smem(kernel, (21, 5, 10), n_dev)} at the suite's "
+              f"(21, 5, 10)")
 
     # -- 3. kernels vs plain versions -------------------------------------
     max_err = dict.fromkeys(_cuda.LAUNCHES, 0)
@@ -1314,7 +1335,7 @@ def main() -> int:
             ops=ops_add((1, v_ops), (1, f_ops)),
             nbytes=var_bytes + data_bytes + 4 * (P * G + P)),
     }
-    before = dict(_cuda.LAUNCHES)
+    saved = dict(_cuda.LAUNCHES)
     # launches per generation on the backend that runs each kernel: auto
     # launches a fitness kernel once (init), ref adds one a generation
     home = {"pop_mlp_correct": ("off", "ref"), "pop_variation_kernel": ("off", "phases"),
@@ -1367,8 +1388,8 @@ def main() -> int:
     rows += lm_numbers(lm, n_sm, clock_hz, smi)
     rows.append(probe_numbers(dev, probe_launches["probe"], smi))
     # restore: the timing launches above are not main-path launches
-    for k in before:
-        _cuda.LAUNCHES[k] = before[k]
+    for k in saved:
+        _cuda.LAUNCHES[k] = saved[k]
 
     print(smi)
     print(json.dumps({"kernels": rows}))

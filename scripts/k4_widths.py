@@ -1,12 +1,13 @@
 """Time K4 (``pop_mlp_correct_mc``) under other sets of compiled widths.
 
 ``src/repro_torch/csrc/pop_mlp.cu`` compiles K4's forwards for the (input,
-hidden, output) widths listed in ``kMcBuckets``: a 2-layer net runs the
+hidden, output) widths listed in ``kMcBuckets`` (``csrc/common.cuh``): a
+2-layer net runs the
 smallest of them that holds it, its tables padded with zeros, and any other
 net runs the general kernel. This script builds that source as it stands
-(the package's library) and once for each set of widths in ``VARIANTS`` (a
-copy of the source with the ``kMcBuckets`` line rewritten, compiled alone
-under ``build/k4_widths/``). At P = 256 and K = 8 device instances, on each
+(the package's library) and once for each set of widths in ``VARIANTS``
+(``pop_mlp.cu`` compiled alone under ``build/k4_widths/`` beside a copy of
+``common.cuh`` with the ``kMcBuckets`` line rewritten). At P = 256 and K = 8 device instances, on each
 dataset's training samples at its paper topology and on pendigits' samples
 at the padded suite's (21, 5, 10), it holds every build's counts against
 the plain version, then times each build's launcher on the same prepared
@@ -40,13 +41,13 @@ BUCKETS_LINE = re.compile(r"constexpr McDims kMcBuckets\[\] = \{.*\};")
 P, K = 256, 8
 
 
-def variant_source(csrc: Path, widths) -> str:
-    """pop_mlp.cu with its compiled widths replaced by ``widths``."""
+def variant_header(csrc: Path, widths) -> str:
+    """common.cuh with its compiled widths replaced by ``widths``."""
     line = ("constexpr McDims kMcBuckets[] = {"
             + ", ".join(f"{{{a}, {b}, {c}}}" for a, b, c in widths) + "};")
-    src, n = BUCKETS_LINE.subn(line, (csrc / "pop_mlp.cu").read_text())
+    src, n = BUCKETS_LINE.subn(line, (csrc / "common.cuh").read_text())
     if n != 1:
-        raise RuntimeError("pop_mlp.cu has no single kMcBuckets line to rewrite")
+        raise RuntimeError("common.cuh has no single kMcBuckets line to rewrite")
     return src
 
 
@@ -59,7 +60,8 @@ def start_builds(_cuda) -> dict:
         out.mkdir(parents=True, exist_ok=True)
         for f in _cuda.CSRC.glob("*.cuh"):
             shutil.copy(f, out / f.name)
-        (out / "pop_mlp.cu").write_text(variant_source(_cuda.CSRC, widths))
+        (out / "common.cuh").write_text(variant_header(_cuda.CSRC, widths))
+        shutil.copy(_cuda.CSRC / "pop_mlp.cu", out / "pop_mlp.cu")
         lib = out / "libk4.so"
         cmd = [_cuda._nvcc(), *_cuda.COMPILE_FLAGS, "-shared", "-o", str(lib),
                str(out / "pop_mlp.cu")]
@@ -117,8 +119,8 @@ def main() -> int:
         fn.argtypes, fn.restype = _cuda._SIGNATURES["pop_mlp_correct_mc_launch"], ctypes.c_int
         logs[name] = f"== pop_mlp\n{log}"
     widths = {"as built": MC_BUCKETS, **VARIANTS}
-    entries = {r"pop_mlp_correct_mc_kernelILi(\d+)ELi(\d+)ELi(\d+)E":
-               "pop_mlp_correct_mc_kernel<{0}, {1}, {2}>"}
+    entries = {r"pop_mlp_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb1E":
+               "K4 pop_mlp_tables_kernel<{0}, {1}, {2}, true>"}
     for name, log in logs.items():
         for line in entry_ptxas(log, "pop_mlp", entries):
             print(f"[k4_widths] [build] {name} {line}")

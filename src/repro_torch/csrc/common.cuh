@@ -1,12 +1,13 @@
 // Device functions shared by the GA kernels (sm_90a):
 //   * the counter-based Threefry-2x32 draw of repro_torch/core/genome.py,
-//   * the integer forward pass + first-maximum argmax of repro_torch/core/mlp.py,
-//     nominal or on a perturbed device instance (apply_device_deltas),
+//   * the integer forward pass + first-maximum argmax of repro_torch/core/mlp.py
+//     on genomes in shared memory, and the tile counter that sweeps samples
+//     over them (K3's nominal branch: predict, count_tile),
 //   * the per-gene variation of repro_torch/kernels/pop_variation/ref.py,
-//   * the tile counters that sweep samples over genomes held in shared memory,
-//     for the nominal device and for K perturbed device instances;
-//   * K4's tables of per-instance weight multipliers and the forwards that
-//     read them (McTables, mc_build, mc_forwards_fixed, mc_forwards_any).
+//   * the tables of per-instance weight multipliers and the forwards that read
+//     them (McTables, mc_build, mc_forwards_fixed, mc_forwards_any, mc_count),
+//     which K1, K4 and K3's n_dev branch share, with the rule that picks the
+//     widths their forwards run in (kMcBuckets, mc_plan).
 //
 // Bit-identity rules (each one mirrors XLA, which the JAX reference runs on):
 //   * all hashing is uint32_t with natural wraparound;
@@ -25,9 +26,10 @@ namespace repro_torch {
 
 constexpr int kMaxLayers = 4;
 constexpr int kMaxWidth = 32;   // widest layer the forward pass holds in registers
-constexpr int kPopTile = 8;     // chromosomes per block in the fitness kernels
+// K3's nominal branch: children per block, threads, samples per block (grid.y)
+constexpr int kPopTile = 8;
 constexpr int kThreads = 256;
-constexpr int kSampleChunk = 512;  // samples per block along grid.y
+constexpr int kSampleChunk = 512;
 
 struct Layer {
   int masks, signs, exps, bias, bshift, rshift, fan_in, fan_out;  // gene offsets and sizes
@@ -88,22 +90,9 @@ __device__ __forceinline__ int32_t sar(int32_t x, int32_t s) {
   return x >> ((s < 0 || s > 31) ? 31 : s);
 }
 
-// Exponent readers of predict(): gene e of genome g as the forward pass uses it.
+// The exponent reader of predict(): gene e of genome g as the forward pass uses it.
 struct NominalExp {
   __device__ __forceinline__ int32_t operator()(const int32_t* g, int e) const { return g[e]; }
-};
-
-// Device instance k: its delta row d (shared memory, in {-1, 0, +1}) moves an
-// exponent gene, which then clips into [0, high[e] - 1]; a gene with delta 0
-// passes through untouched (genome.apply_device_deltas). The deltas are zero off
-// the exponent genes (engine.device_deltas), so only exponents are read this way.
-struct PerturbedExp {
-  const int32_t* d;
-  const int32_t* high;
-  __device__ __forceinline__ int32_t operator()(const int32_t* g, int e) const {
-    const int32_t v = g[e], dv = d[e];
-    return dv == 0 ? v : min(max(v + dv, 0), high[e] - 1);
-  }
 };
 
 // Predicted class of genome g (shared memory) for one sample x (registers).
@@ -178,69 +167,6 @@ static __device__ void count_tile(const int32_t* g_tile, int n_rows, int G,
   if (threadIdx.x < n_rows && red[threadIdx.x]) atomicAdd(&counts[threadIdx.x], red[threadIdx.x]);
 }
 
-// count_tile over n_dev device instances: counts[p * n_dev + k] gains the correct
-// predictions of genome p perturbed by delta row k of `dev` (shared memory,
-// n_dev x G, with the exclusive gene bounds `high`). Each thread loads a sample
-// once and runs the n_dev x n_rows forwards on it. The sample loop is uniform
-// across the block (a thread past the end runs no forward but joins every
-// vote), so each warp reduces one (genome, instance) step with a ballot and lane
-// 0 adds it into `red` (kPopTile * n_dev ints of shared memory, zeroed and
-// synchronised by the caller); then one integer atomicAdd per (genome,
-// instance) and block lands it: exact and order independent, as count_tile.
-static __device__ void count_tile_mc(const int32_t* g_tile, int n_rows, int G,
-                                     const int32_t* __restrict__ x,
-                                     const int32_t* __restrict__ labels, int n_in,
-                                     int s_begin, int s_end, const Net& net,
-                                     const int32_t* out_mask, const int32_t* dev,
-                                     const int32_t* high, int n_dev, int32_t* red,
-                                     int32_t* counts) {
-  const int lane = threadIdx.x & 31;
-  for (int base = s_begin; base < s_end; base += blockDim.x) {
-    const int s = base + threadIdx.x;
-    const bool live = s < s_end;
-    int32_t xs[kMaxWidth];
-    int32_t y = -1;
-    if (live) {
-      for (int i = 0; i < n_in; ++i) xs[i] = x[static_cast<size_t>(s) * n_in + i];
-      y = labels[s];
-    }
-    for (int k = 0; k < n_dev; ++k) {
-      const PerturbedExp exp{dev + static_cast<size_t>(k) * G, high};
-      for (int p = 0; p < n_rows; ++p) {
-        const bool ok = live && predict(g_tile + p * G, xs, net, out_mask, exp) == y;
-        const unsigned votes = __ballot_sync(0xffffffffu, ok);
-        if (lane == 0 && votes) atomicAdd(&red[p * n_dev + k], __popc(votes));
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_rows * n_dev; i += blockDim.x)
-    if (red[i]) atomicAdd(&counts[i], red[i]);
-}
-
-// Shared memory of the device-instance kernels, in order: the genome tile
-// (kPopTile x G), the delta table (n_dev x G), the gene bounds (G), the output
-// mask (kMaxWidth) and the per-block counts (kPopTile x n_dev).
-struct McSmem {
-  int32_t *g_tile, *dev, *high, *om, *red;
-  __device__ McSmem(int32_t* smem, int G, int n_dev)
-      : g_tile(smem),
-        dev(smem + kPopTile * G),
-        high(dev + static_cast<size_t>(n_dev) * G),
-        om(high + G),
-        red(om + kMaxWidth) {}
-
-  // Fills the delta table, the bounds, the output mask and zeroes the counts
-  // (the caller fills the genome tile and synchronises).
-  __device__ void load(const int32_t* __restrict__ dev_g, const int32_t* __restrict__ high_g,
-                       const int32_t* __restrict__ out_mask, int n_dev, int G, int n_out) {
-    for (int k = threadIdx.x; k < n_dev * G; k += blockDim.x) dev[k] = dev_g[k];
-    for (int k = threadIdx.x; k < G; k += blockDim.x) high[k] = high_g[k];
-    if (threadIdx.x < n_out) om[threadIdx.x] = out_mask[threadIdx.x];
-    for (int k = threadIdx.x; k < kPopTile * n_dev; k += blockDim.x) red[k] = 0;
-  }
-};
-
 struct Genes {
   const int32_t* low;
   const int32_t* high;
@@ -308,13 +234,6 @@ inline int fitness_smem_bytes(int G) {
   return static_cast<int>(sizeof(int32_t)) * (kPopTile * G + kMaxWidth + kPopTile);
 }
 
-// McSmem's size (kernels/pop_generation/kernel.py ndev_smem_bytes computes the
-// same).
-inline int fitness_mc_smem_bytes(int G, int n_dev) {
-  return static_cast<int>(sizeof(int32_t)) *
-         (kPopTile * G + n_dev * G + G + kMaxWidth + kPopTile * n_dev);
-}
-
 // Raises a kernel's dynamic shared-memory limit to `smem` bytes where it needs
 // more than the default 48 KB; the error of a size past the card's limit.
 template <class Kernel>
@@ -323,24 +242,35 @@ inline cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// -- device instances by per-instance weight words (K4) -------------------------
+// -- the tables of per-instance weight multipliers (K1, K4, K3 n_dev) ------------
 //
 // Instance k's term of a weight is sign * shl(h & mask, e_k), e_k the exponent
-// gene moved by the instance's delta and clipped (PerturbedExp). In wrapping
-// uint32 arithmetic that is (h & mask) * mult_k with mult_k = (2 sign - 1) << e_k,
-// and 0 where e_k leaves [0, 31] (shl's zero): the same bits. A block first
-// builds, for its kMcRows chromosomes, the tables its forwards read (McTables):
-// each instance's multiplier of each weight, the masks, each neuron's shifted
-// bias and each layer's right shift. A forward then costs an AND and a
-// multiply-add per weight, its table operands broadcast loads.
+// gene moved by the instance's delta and clipped into [0, high - 1] (a zero
+// delta leaves it as it is; genome.apply_device_deltas). In wrapping uint32
+// arithmetic that is (h & mask) * mult_k with mult_k = (2 sign - 1) << e_k, and 0
+// where e_k leaves [0, 31] (shl's zero): the same bits. A block first builds,
+// for its chromosomes, the tables its forwards read (McTables): each
+// instance's multiplier of each weight, the masks, each neuron's shifted bias
+// and each layer's right shift. A forward then costs an AND and a multiply-add
+// per weight, its table operands broadcast loads. The nominal device (K1) is
+// one instance with e_k = e: the same tables and forwards with the deltas
+// compiled out (kDev false).
 // (kernels/pop_mlp/ref.py mc_tables builds the same tables on the CPU.)
 
-constexpr int kMcRows = 3;        // chromosomes per block
-constexpr int kMcThreads = 128;   // samples per block, one a thread
-// blocks per SM the compiled forwards are held to (128 registers a thread): a
-// block's table build waits on memory, and other blocks hide it; the
-// registers this takes from the forwards cost them less (a few spilled words)
-constexpr int kMcBlocksPerSM = 4;
+constexpr int kMcThreads = 128;   // threads per block
+
+// The tile of each table kernel: chromosomes per block (Rows), samples per
+// thread (Samples: a block counts kMcThreads x Samples of them, grid.y), and
+// the blocks per SM its compiled forwards are held to (BlocksPerSM, for
+// __launch_bounds__: 4 is 128 registers a thread). A block's table build
+// waits on memory and other blocks hide it; the registers this takes from the
+// forwards cost them less (a few spilled words). K3's n_dev branch takes one
+// pair of children (pop_generation.cu's header says why). The samples a
+// thread takes and K3's cap were chosen by scripts/mc_tiles.py's timings
+// (PERF.md section 6). (kernels/pop_mlp/ref.py MC_TILES lists the same.)
+constexpr int kK4Rows = 3, kK4Samples = 1, kK4BlocksPerSM = 4;   // K4: K instances
+constexpr int kK1Rows = 3, kK1Samples = 4, kK1BlocksPerSM = 4;   // K1: the nominal device
+constexpr int kK3Rows = 2, kK3Samples = 4, kK3BlocksPerSM = 4;   // K3's n_dev branch
 
 // Where a row's weights and neurons sit in the tables, laid out for the widths
 // fi[l] -> fo[l] of each layer: layer l's weight (i, j) at word woff[l] + i
@@ -369,33 +299,78 @@ inline McLayout mc_layout(const int* widths, int n_layers, int pad) {
   return m;
 }
 
-// McTables' size in words (kernels/pop_mlp/ref.py mc_smem_bytes computes the
-// same): per row the K multiplier blocks, the masks, the biases, the right
-// shifts and the K counts, then the output mask.
-inline int mc_smem_words(const McLayout& m, int n_dev) {
-  return kMcRows * (n_dev * m.wp + m.wp + m.np + kMaxLayers + n_dev) + kMaxWidth;
+// McTables' size in words for `rows` chromosomes (kernels/pop_mlp/ref.py
+// mc_smem_bytes computes the same): per row the K multiplier blocks, the
+// masks, the biases, the right shifts and the K counts, then the output mask.
+inline int mc_smem_words(const McLayout& m, int n_dev, int rows) {
+  return rows * (n_dev * m.wp + m.wp + m.np + kMaxLayers + n_dev) + kMaxWidth;
+}
+
+// The widths the table kernels have forwards compiled for (kernels/pop_mlp/
+// ref.py MC_BUCKETS lists the same): (input, hidden, output) of 2-layer nets.
+struct McDims {
+  int in, hid, out;
+};
+constexpr McDims kMcBuckets[] = {{16, 5, 10}, {21, 5, 10}};
+constexpr int kMcNumBuckets = sizeof(kMcBuckets) / sizeof(kMcBuckets[0]);
+
+// The one rule of every table kernel's launcher and size query: the compiled
+// widths with the fewest weights that hold the net (their index into
+// kMcBuckets), if `extra` words of shared memory and their tables for `rows`
+// chromosomes and n_dev instances fit the card's limit per block; else -1,
+// the general kernel on the net's own widths, packed. `lay` gets the layout.
+inline int mc_plan(const Net& net, int n_dev, int rows, int extra, McLayout& lay) {
+  int widths[kMaxLayers + 1] = {net.layer[0].fan_in};
+  for (int l = 0; l < net.n_layers; ++l) widths[l + 1] = net.layer[l].fan_out;
+  int best = -1;
+  if (net.n_layers == 2)
+    for (int b = 0; b < kMcNumBuckets; ++b) {
+      const McDims& d = kMcBuckets[b];
+      if (widths[0] <= d.in && widths[1] <= d.hid && widths[2] <= d.out &&
+          (best < 0 || d.in * d.hid + d.hid * d.out <
+                           kMcBuckets[best].in * kMcBuckets[best].hid +
+                               kMcBuckets[best].hid * kMcBuckets[best].out))
+        best = b;
+    }
+  if (best >= 0) {
+    const McDims& d = kMcBuckets[best];
+    const int bucket[3] = {d.in, d.hid, d.out};
+    const McLayout padded = mc_layout(bucket, 2, 4);
+    int device = 0, optin = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (static_cast<int>(sizeof(int32_t)) * (extra + mc_smem_words(padded, n_dev, rows)) <=
+        optin) {
+      lay = padded;
+      return best;
+    }
+  }
+  lay = mc_layout(widths, net.n_layers, 1);
+  return -1;
 }
 
 struct McTables {
   uint32_t *mult, *mask, *bias;   // [row][instance][wp], [row][wp], [row][np]
   int32_t *rsh, *om, *red;        // [row][kMaxLayers], [kMaxWidth], [row][instance]
-  __device__ McTables(int32_t* smem, const McLayout& m, int n_dev)
+  __device__ McTables(int32_t* smem, const McLayout& m, int n_dev, int rows)
       : mult(reinterpret_cast<uint32_t*>(smem)),
-        mask(mult + kMcRows * n_dev * m.wp),
-        bias(mask + kMcRows * m.wp),
-        rsh(reinterpret_cast<int32_t*>(bias + kMcRows * m.np)),
-        om(rsh + kMcRows * kMaxLayers),
+        mask(mult + rows * n_dev * m.wp),
+        bias(mask + rows * m.wp),
+        rsh(reinterpret_cast<int32_t*>(bias + rows * m.np)),
+        om(rsh + rows * kMaxLayers),
         red(om + kMaxWidth) {}
 };
 
-// Fills the tables of the n_rows chromosomes g (global memory, row stride G)
-// for the n_dev delta rows of dev (global, n_dev x G; zero off the exponent
-// genes, which is all PerturbedExp reads) with the exclusive gene bounds
-// high, copies the output mask (0 past n_out) and zeroes the counts. Slots of
-// the layout past the net's widths get 0; the padding at a layer's end stays
+// Fills the tables of the n_rows chromosomes g (global or shared memory, row
+// stride G; at most kRows) for the n_dev delta rows of dev (global, n_dev x G;
+// zero off the exponent genes) with the exclusive gene bounds high, copies
+// the output mask (0 past n_out) and zeroes the counts. kDev false: the
+// nominal device (n_dev 1, e_k = e; dev and high are not read). Slots of the
+// layout past the net's widths get 0; the padding at a layer's end stays
 // unwritten: no forward reads it. The caller synchronises.
 // (Loops whose loads wait on each other leave the block idle here: with a
 // few blocks per SM their latency is not hidden.)
+template <bool kDev, int kRows>
 static __device__ void mc_build(const McTables& t, const McLayout& m, const Net& net,
                                 const int32_t* __restrict__ g, int n_rows, int G,
                                 const int32_t* __restrict__ dev,
@@ -419,15 +394,15 @@ static __device__ void mc_build(const McTables& t, const McLayout& m, const Net&
     // each row's exponent and sign; every load of an iteration is independent
 #pragma unroll 2
     for (int i = threadIdx.x; i < n_dev * nw; i += blockDim.x) {
-      const int k = i / nw, s = i % nw;
+      const int k = kDev ? i / nw : 0, s = kDev ? i % nw : i;
       int wl;
       const bool in = weight(s, wl);
       const int e_gene = L.exps + wl;
-      const int32_t d = in ? dev[static_cast<size_t>(k) * G + e_gene] : 0;
-      const int32_t hi = in ? high[e_gene] - 1 : 0;
+      const int32_t d = kDev && in ? dev[static_cast<size_t>(k) * G + e_gene] : 0;
+      const int32_t hi = kDev && in ? high[e_gene] - 1 : 0;
       uint32_t* out = t.mult + k * m.wp + m.woff[l] + s;
 #pragma unroll
-      for (int r = 0; r < kMcRows; ++r) {
+      for (int r = 0; r < kRows; ++r) {
         if (r < n_rows) {
           uint32_t w = 0;
           if (in) {
@@ -482,9 +457,10 @@ __device__ __forceinline__ void mc_vote(const McTables& t, int slot, bool ok) {
 // past n_in read as 0; hidden neurons past the net's are 0 (a zero bias and
 // zero multipliers); output columns past it have a zero output mask.
 template <int IN, int HID, int OUT>
-static __device__ void mc_forwards_fixed(const McTables& t, const McLayout& m, int n_rows,
-                                         int n_dev, int act_max, int n_in,
-                                         const int32_t* __restrict__ xs, bool live, int32_t y) {
+static __device__ __forceinline__ void mc_forwards_fixed(const McTables& t, const McLayout& m,
+                                                         int n_rows, int n_dev, int act_max,
+                                                         int n_in, const int32_t* __restrict__ xs,
+                                                         bool live, int32_t y) {
   constexpr int kW1 = IN * HID, kW2 = HID * OUT;
   constexpr int kG1 = (kW1 + 3) / 4, kG2 = (kW2 + 3) / 4;   // 4-word groups per layer
   constexpr int kB2 = (HID + 3) / 4 * 4;                     // layer 2's first bias word
@@ -558,9 +534,10 @@ static __device__ void mc_forwards_fixed(const McTables& t, const McLayout& m, i
 // The same for any topology net_from_desc takes (up to kMaxLayers layers of
 // width up to kMaxWidth): runtime widths, so the activations sit in local
 // memory, and layer 1's AND is redone per instance.
-static __device__ void mc_forwards_any(const McTables& t, const McLayout& m, const Net& net,
-                                       int n_rows, int n_dev, const int32_t* __restrict__ xs,
-                                       bool live, int32_t y) {
+static __device__ __forceinline__ void mc_forwards_any(const McTables& t, const McLayout& m,
+                                                       const Net& net, int n_rows, int n_dev,
+                                                       const int32_t* __restrict__ xs, bool live,
+                                                       int32_t y) {
   const int n_in = net.layer[0].fan_in, n_out = net.layer[net.n_layers - 1].fan_out;
   int32_t x[kMaxWidth];
   for (int i = 0; i < n_in; ++i) x[i] = xs[i];
@@ -598,6 +575,34 @@ static __device__ void mc_forwards_any(const McTables& t, const McLayout& m, con
       }
       mc_vote(t, r * n_dev + k, live && best == y);
     }
+  }
+}
+
+// The forwards of the block's samples [s_begin, s_end) (at most kMcThreads x
+// kSamples) on the n_rows x n_dev (chromosome, instance) pairs of the tables,
+// voted into t.red: thread t takes samples s_begin + q kMcThreads + t, q <
+// kSamples, reading each from x (global, n_in ints a sample) once. IN > 0:
+// the forwards compiled for the widths (IN, HID, OUT); IN == 0: any net. The
+// loop is uniform across the block: a thread past the samples runs the
+// forwards of the block's first sample and votes false. n_dev may be a
+// constant (K1's 1), which the inlined forwards fold.
+template <int IN, int HID, int OUT, int kSamples>
+static __device__ __forceinline__ void mc_count(const McTables& t, const McLayout& m,
+                                                const Net& net, int n_rows, int n_dev,
+                                                const int32_t* __restrict__ x,
+                                                const int32_t* __restrict__ labels, int n_in,
+                                                int s_begin, int s_end) {
+  for (int q = 0; q < kSamples; ++q) {
+    const int base = s_begin + q * kMcThreads;
+    if (base >= s_end) break;
+    const int s = base + threadIdx.x;
+    const bool live = s < s_end;
+    const int32_t y = live ? labels[s] : -1;
+    const int32_t* xs = x + static_cast<size_t>(live ? s : s_begin) * n_in;
+    if constexpr (IN > 0)
+      mc_forwards_fixed<IN, HID, OUT>(t, m, n_rows, n_dev, net.act_max, n_in, xs, live, y);
+    else
+      mc_forwards_any(t, m, net, n_rows, n_dev, xs, live, y);
   }
 }
 

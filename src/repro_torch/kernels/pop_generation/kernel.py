@@ -8,7 +8,10 @@ by the variation math of ``pop_variation`` and scored by the fitness math
 of ``pop_mlp`` without leaving the block's shared memory. Every child is
 evaluated. Its ``n_dev`` branch (``dev``, a (K, G) device-variation delta
 table) scores each child on the K perturbed device instances instead:
-(P, K) counts, the same children.
+(P, K) counts, the same children, from the tables of per-instance weight
+multipliers of ``pop_mlp_correct_mc`` built for the children in the block
+(the launcher's ``pop_generation_mc_smem_bytes`` gives the block's shared
+memory, which the wrapper checks).
 
 Every operand may carry a leading lane axis: L independent populations made
 and scored in one launch (a single one is the case L = 1).
@@ -22,18 +25,10 @@ import torch
 
 from ...core.genome import GenomeSpec
 from .. import _cuda
-from ..pop_mlp.kernel import (MAX_WIDTH, POP_TILE, check_deltas, net_desc,
-                              out_mask_or_ones, pop_mlp_correct_mc_plain,
-                              pop_mlp_correct_plain)
+from ..pop_mlp.kernel import (check_deltas, net_desc, out_mask_or_ones,
+                              pop_mlp_correct_mc_plain, pop_mlp_correct_plain)
 from ..pop_variation.kernel import (VARIATION_OPERANDS, pop_variation_plain,
                                     variation_operands)
-
-
-def ndev_smem_bytes(G: int, n_dev: int) -> int:
-    """Dynamic shared memory of the ``n_dev`` branch (``csrc/common.cuh``
-    ``fitness_mc_smem_bytes``): genome tile, delta table, gene bounds,
-    output mask and per-block counts."""
-    return 4 * (POP_TILE * G + n_dev * G + G + MAX_WIDTH + POP_TILE * n_dev)
 
 
 def pop_generation_plain(a_rows, b_rows, do_rows, table_low, table_high,
@@ -97,7 +92,9 @@ def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
                               (*head, desc, children.data_ptr(), counts.data_ptr()),
                               (*keep, counts))
     else:
-        d, _ = check_deltas(deltas, o["high"], L, G, dev, lambda K: ndev_smem_bytes(G, K))
+        lib = _cuda.library()
+        d, _ = check_deltas(deltas, o["high"], L, G, dev,
+                            lambda K: lib.pop_generation_mc_smem_bytes(desc, G, K))
         counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=dev)
         launch = _cuda.Launch("pop_generation_kernel_mc", "pop_generation_mc_launch",
                               (*head, d.data_ptr(), d.shape[1], desc, children.data_ptr(),

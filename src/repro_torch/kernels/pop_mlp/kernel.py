@@ -5,12 +5,14 @@
 kernel.py:pop_mlp_correct``: (P, G) int32 genomes × (S, n_in) int32 samples
 × (S,) int32 labels → (P,) int32 correct counts of the integer approximate
 MLP. ``pop_mlp_correct_mc`` replaces ``pop_mlp_correct_mc`` there: the same
-over K device instances given by a (K, G) delta table → (P, K) counts,
-from tables of per-instance weight multipliers that each block builds in
-shared memory (``ref.pop_mlp_correct_mc_tables`` is their arithmetic on the
-CPU; the launcher's ``pop_mlp_correct_mc_smem_bytes`` gives their size,
-which the wrapper checks). The source's header says what bounds them on
-the card and how they are laid out.
+over K device instances given by a (K, G) delta table → (P, K) counts.
+One kernel template runs both, from tables of per-instance weight
+multipliers that each block builds in shared memory (K1 is one instance
+with no deltas; ``ref.pop_mlp_correct_mc_tables`` is their arithmetic on
+the CPU; the launchers' ``pop_mlp_correct_smem_bytes`` and
+``pop_mlp_correct_mc_smem_bytes`` give their size, which the wrappers
+check). The source's header says what bounds them on the card and how they
+are laid out.
 
 Both take a leading lane axis on every operand: L independent problems of
 one layout scored in one launch, the lane on the grid's z axis (a single
@@ -30,8 +32,6 @@ from .. import _cuda
 from .ref import MAX_LAYERS, MAX_WIDTH
 from .ref import pop_mlp_correct_mc as pop_mlp_correct_mc_tiled
 from .ref import pop_mlp_correct_tiled
-
-POP_TILE = 8     # csrc/common.cuh kPopTile
 
 
 def net_desc(spec: GenomeSpec) -> list[int]:
@@ -127,12 +127,14 @@ def pop_mlp_correct_call(pop, x_int, labels, *, spec: GenomeSpec,
     head = (pop.data_ptr(), L, P, G, x_int.data_ptr(), labels.data_ptr(), S, n_in,
             rows.data_ptr(), samp.data_ptr(), om.data_ptr())
     keep = (pop, x_int, labels, rows, samp, om, desc)
+    lib = _cuda.library()
     if dev is None:
+        _cuda.check_smem(lib.pop_mlp_correct_smem_bytes(desc), device,
+                         f"pop_mlp_correct at {spec.topo.sizes}")
         counts = torch.zeros((L, P), dtype=torch.int32, device=device)
         launch = _cuda.Launch("pop_mlp_correct", "pop_mlp_correct_launch",
                               (*head, desc, counts.data_ptr()), (*keep, counts))
     else:
-        lib = _cuda.library()
         d, hi = check_deltas(dev, gene_high, L, G, device,
                              lambda K: lib.pop_mlp_correct_mc_smem_bytes(desc, K))
         counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=device)

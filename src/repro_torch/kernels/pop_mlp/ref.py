@@ -9,11 +9,14 @@
 ``pop_mlp_correct_mc``    — the same tiling over K device instances → (P, K);
                             the plain version of ``pop_mlp_correct_mc``'s
                             CUDA kernel.
-``pop_mlp_correct_mc_tables`` — the same counts by the arithmetic of that
-                            kernel: per-(chromosome, instance) signed
-                            multipliers, shifted biases and right shifts in
-                            its padded table layout (``mc_tables``,
-                            ``mc_layout``, ``mc_smem_bytes``).
+``pop_mlp_correct_mc_tables`` — the same counts by the arithmetic of the
+                            table kernels (K4, K1 at one instance with no
+                            deltas, K3's ``n_dev`` branch on its children):
+                            per-(chromosome, instance) signed multipliers,
+                            shifted biases and right shifts in their padded
+                            table layout (``mc_tables``, ``mc_layout``), and
+                            the kernels' shared memory (``mc_smem_bytes``,
+                            ``k1_smem_bytes``, ``generation_mc_smem_bytes``).
 """
 from __future__ import annotations
 
@@ -88,14 +91,16 @@ def _tiled(count, val_shape, pop, x_int, labels, pop_tile, sample_tile,
     return counts
 
 
-# -- K4's arithmetic (csrc/common.cuh McTables) on the CPU ---------------------
+# -- the table kernels' arithmetic (csrc/common.cuh McTables) on the CPU ---------
 
-MC_ROWS = 3        # csrc/common.cuh kMcRows: chromosomes per block
+# csrc/common.cuh kK4*, kK1*, kK3*: each table kernel's (chromosomes per
+# block, samples per thread, blocks per SM)
+MC_TILES = {"K4": (3, 1, 4), "K1": (3, 4, 4), "K3": (2, 4, 4)}
 MAX_LAYERS = 4     # csrc/common.cuh kMaxLayers
 MAX_WIDTH = 32     # csrc/common.cuh kMaxWidth
-# the (input, hidden, output) widths K4 has kernels compiled for (csrc/
-# pop_mlp.cu kMcBuckets): pendigits' and the padded suite's; the paper's other
-# datasets pad into them
+# the (input, hidden, output) widths the table kernels have forwards compiled
+# for (csrc/common.cuh kMcBuckets): pendigits' and the padded suite's; the
+# paper's other datasets pad into them
 MC_BUCKETS = ((16, 5, 10), (21, 5, 10))
 H100_SMEM_OPTIN = 232448   # bytes of shared memory an H100 grants a block
 _U32 = 0xFFFFFFFF
@@ -142,52 +147,75 @@ def mc_layout(sizes, packed: bool = False) -> McLayout:
     return McLayout(tuple(woff), tuple(noff), tuple(widths[:-1]), tuple(widths[1:]), wp, np_)
 
 
-def _smem_bytes(m: McLayout, n_dev: int) -> int:
-    return 4 * (MC_ROWS * (n_dev * m.wp + m.wp + m.np + MAX_LAYERS + n_dev) + MAX_WIDTH)
+def _smem_bytes(m: McLayout, n_dev: int, rows: int, extra: int) -> int:
+    return 4 * (extra + rows * (n_dev * m.wp + m.wp + m.np + MAX_LAYERS + n_dev) + MAX_WIDTH)
 
 
-def mc_smem_bytes(sizes, n_dev: int, limit: int = H100_SMEM_OPTIN) -> int:
-    """K4's dynamic shared memory per block on a card that grants a block
-    ``limit`` bytes (``csrc/pop_mlp.cu`` ``mc_kernel`` and ``common.cuh``
-    ``mc_smem_words``): per chromosome the n_dev multiplier blocks, the
-    masks, the biases, the right shifts and the n_dev counts, then the
-    output mask, in the compiled widths' layout if it fits ``limit``, else
-    packed (the general kernel's)."""
-    padded = _smem_bytes(mc_layout(sizes), n_dev)
-    return padded if padded <= limit else _smem_bytes(mc_layout(sizes, packed=True), n_dev)
+def mc_smem_bytes(sizes, n_dev: int, limit: int = H100_SMEM_OPTIN, *,
+                  rows: int = MC_TILES["K4"][0], extra: int = 0) -> int:
+    """A table kernel's dynamic shared memory per block on a card that
+    grants a block ``limit`` bytes (``csrc/common.cuh`` ``mc_plan`` and
+    ``mc_smem_words``): ``extra`` words ahead of the tables, then per
+    chromosome (``rows`` of them; K4's by default) the n_dev multiplier
+    blocks, the masks, the biases, the right shifts and the n_dev counts,
+    then the output mask, in the compiled widths' layout if it fits
+    ``limit``, else packed (the general kernel's)."""
+    padded = _smem_bytes(mc_layout(sizes), n_dev, rows, extra)
+    if padded <= limit:
+        return padded
+    return _smem_bytes(mc_layout(sizes, packed=True), n_dev, rows, extra)
+
+
+def k1_smem_bytes(sizes, limit: int = H100_SMEM_OPTIN) -> int:
+    """K1's dynamic shared memory per block (``csrc/pop_mlp.cu``
+    ``pop_mlp_correct_smem_bytes``): the tables of its tile at one
+    instance."""
+    return mc_smem_bytes(sizes, 1, limit, rows=MC_TILES["K1"][0])
+
+
+def generation_mc_smem_bytes(sizes, n_genes: int, n_dev: int,
+                             limit: int = H100_SMEM_OPTIN) -> int:
+    """K3's ``n_dev`` branch's dynamic shared memory per block
+    (``csrc/pop_generation.cu`` ``pop_generation_mc_smem_bytes``): its
+    children's tile (rows × ``n_genes`` words, rounded up to a multiple of
+    4), then the tables of those rows at n_dev instances."""
+    rows = MC_TILES["K3"][0]
+    tile = -(-rows * n_genes // 4) * 4
+    return mc_smem_bytes(sizes, n_dev, limit, rows=rows, extra=tile)
 
 
 def mc_tables(pop, dev, gene_high, *, spec: GenomeSpec, packed: bool = False):
-    """K4's tables of each chromosome in the layout :func:`mc_layout`, as
-    ``csrc/common.cuh`` ``mc_build`` fills them (int64 tensors holding
-    uint32 words; slots past the net's widths and padding 0): ``mult`` (P,
-    K, wp), instance k's multiplier of each weight, ``(2 sign - 1) << e_k``
-    mod 2^32 with ``e_k`` the exponent gene moved by ``dev[k]`` and clipped
-    into [0, gene_high - 1] (a zero delta leaves it as it is), and 0 where
-    ``e_k`` leaves [0, 31]; ``mask`` (P, wp); ``bias`` (P, np), each
-    neuron's bias shifted left by its layer's bias shift (0 outside [0,
-    31]); ``rsh`` (P, n_layers), each layer's right shift, 31 where it
-    leaves [0, 31]."""
+    """The table kernels' tables of each chromosome in the layout
+    :func:`mc_layout`, as ``csrc/common.cuh`` ``mc_build`` fills them (int64
+    tensors holding uint32 words; slots past the net's widths and padding
+    0): ``mult`` (P, K, wp), instance k's multiplier of each weight, ``(2
+    sign - 1) << e_k`` mod 2^32 with ``e_k`` the exponent gene moved by
+    ``dev[k]`` and clipped into [0, gene_high - 1] (a zero delta leaves it
+    as it is), and 0 where ``e_k`` leaves [0, 31]; ``mask`` (P, wp);
+    ``bias`` (P, np), each neuron's bias shifted left by its layer's bias
+    shift (0 outside [0, 31]); ``rsh`` (P, n_layers), each layer's right
+    shift, 31 where it leaves [0, 31]. ``dev`` None: the nominal device's
+    tables (K1's), one instance with ``e_k = e``; ``gene_high`` is not
+    read."""
     topo = spec.topo
     m = mc_layout(topo.sizes, packed)
-    P, K = pop.shape[0], dev.shape[0]
+    P, K = pop.shape[0], 1 if dev is None else dev.shape[0]
     g = pop.to(torch.int64)
-    d = dev.to(torch.int64)
-    hi = gene_high.to(torch.int64)
     mult = torch.zeros((P, K, m.wp), dtype=torch.int64)
     mask = torch.zeros((P, m.wp), dtype=torch.int64)
     bias = torch.zeros((P, m.np), dtype=torch.int64)
     rsh = torch.zeros((P, topo.n_layers), dtype=torch.int64)
     for l, sl in enumerate(spec.layers):
         fi, fo, n = sl.fan_in, sl.fan_out, m.fi[l] * m.fo[l]
-        e = g[:, None, sl.exps]                                    # (P, 1, fi fo)
-        de = d[None, :, sl.exps]                                   # (1, K, fi fo)
-        ek = torch.where(de == 0, e, torch.minimum(torch.clamp(e + de, min=0),
-                                                   hi[sl.exps] - 1))
+        ek = e = g[:, None, sl.exps]                               # (P, 1, fi fo)
+        if dev is not None:
+            de = dev.to(torch.int64)[None, :, sl.exps]             # (1, K, fi fo)
+            hi = gene_high.to(torch.int64)[sl.exps]
+            ek = torch.where(de == 0, e, torch.minimum(torch.clamp(e + de, min=0), hi - 1))
         sign = (g[:, None, sl.signs] * 2 - 1) & _U32
         w = torch.where((ek < 0) | (ek > 31), 0, (sign << ek.clamp(0, 31)) & _U32)
         slots = torch.zeros((P, K, m.fi[l], m.fo[l]), dtype=torch.int64)
-        slots[:, :, :fi, :fo] = w.view(P, K, fi, fo)
+        slots[:, :, :fi, :fo] = w.reshape(P, K, fi, fo)
         mult[:, :, m.woff[l]:m.woff[l] + n] = slots.flatten(2)
         slots = torch.zeros((P, m.fi[l], m.fo[l]), dtype=torch.int64)
         slots[:, :fi, :fo] = (g[:, sl.masks] & _U32).view(P, fi, fo)
@@ -206,14 +234,15 @@ def _mul32(a, b):
     return ((((a * (b >> 16)) & 0xFFFF) << 16) + a * (b & 0xFFFF)) & _U32
 
 
-def pop_mlp_correct_mc_tables(pop, x_int, labels, *, spec: GenomeSpec, dev, gene_high,
-                              n_valid_rows=None, n_valid_samples=None, out_mask=None,
-                              packed: bool = False):
+def pop_mlp_correct_mc_tables(pop, x_int, labels, *, spec: GenomeSpec, dev=None,
+                              gene_high=None, n_valid_rows=None, n_valid_samples=None,
+                              out_mask=None, packed: bool = False):
     """(P, G) × (K, G) deltas → (P, K) int32 correct counts, computed as
-    K4's kernel computes them: each weight of instance k is one wrapping
-    multiply-add ``acc += (h & mask) * mult[k]`` read through the tables of
-    :func:`mc_tables` over the widths of their layout (inputs past the
-    net's read as 0, output columns past it masked), each accumulator
+    the table kernels compute them (``dev`` None: K1's (P, 1) nominal
+    counts, one instance with no deltas): each weight of instance k is one
+    wrapping multiply-add ``acc += (h & mask) * mult[k]`` read through the
+    tables of :func:`mc_tables` over the widths of their layout (inputs
+    past the net's read as 0, output columns past it masked), each accumulator
     starts at the neuron's shifted bias, a hidden layer's QReLU is an
     arithmetic shift by the table's right shift clamped into [0, act_max],
     and layer 1's ``x & mask`` is formed once and shared by the instances.
@@ -221,7 +250,7 @@ def pop_mlp_correct_mc_tables(pop, x_int, labels, *, spec: GenomeSpec, dev, gene
     topo = spec.topo
     m = mc_layout(topo.sizes, packed)
     mult, mask, bias, rsh = mc_tables(pop, dev, gene_high, spec=spec, packed=packed)
-    P, K = pop.shape[0], dev.shape[0]
+    P, K = mult.shape[:2]
     n_rows = _bound(n_valid_rows, P)
     n_samp = _bound(n_valid_samples, labels.shape[0])
     x = torch.zeros((n_samp, m.fi[0]), dtype=torch.int64)

@@ -1,11 +1,13 @@
 """Each CUDA kernel against its plain version on the card (marker
 ``cuda``): pendigits-like shapes, row/sample bounds, device-variation
-delta tables with K = 1 and 6, exact equality; K4 at the paper's and the
-suite's topologies (in its compiled widths), at a smaller one padded into
-them and at two its general kernel runs, K = 1 and 50, exponents at both
-ends of their range, ragged lanes, and the largest K the card admits
-(where padded tables no longer fit and the general kernel runs); the lane
-axis of the GA
+delta tables with K = 1 and 6, exact equality; the table kernels (K4, K1
+and K3's n_dev branch) at the paper's and the suite's topologies (in their
+compiled widths), at a smaller one padded into them and at two their
+general kernel runs, K = 1 and 50, exponents at both ends of their range,
+ragged lanes, K3 n_dev at 1, 3 and 5 pairs of children, each launcher's
+shared-memory size against its CPU mirror, and the largest K the card
+admits (where padded tables no longer fit and the general kernel runs);
+the lane axis of the GA
 kernels at L = 1 and 3 (unequal per-lane sample counts, a shared row
 bound), one launch for all lanes; the probe kernel and its memo; the LM-side kernels at
 small and ragged shapes (the state scan bit for bit, the pow2 product
@@ -242,6 +244,140 @@ def test_mc_kernel_smem_check_agrees_with_its_launcher(card, sizes):
                                                      gene_high=high))
     with pytest.raises(ValueError, match="shared memory"):
         pop_mlp_correct_mc(pop, x, y, _deltas(spec, k_max + 1, card), high, spec=spec)
+
+
+# -- K1 and K3's n_dev branch on the tables of per-instance multipliers --------
+
+@pytest.mark.parametrize("sizes", MC_TOPOS)
+def test_k1_every_topology_equals_plain(card, sizes):
+    """K1 (the table kernel at one instance, deltas compiled out) against
+    its plain version with row and sample bounds and a masked output
+    column, at every topology K4 is tested on."""
+    spec, pop, x, y, _, _ = _mc_case(card, sizes, 1, seed=len(sizes))
+    om = torch.ones(sizes[-1], dtype=torch.int32, device=card)
+    om[-1] = 0
+    for rows, samples, mask in ((40, None, None), (23, 555, om), (0, None, om)):
+        n = torch.tensor(rows, dtype=torch.int32, device=card)
+        kw = dict(spec=spec, n_valid_rows=n, n_valid_samples=samples, out_mask=mask)
+        before = _cuda.LAUNCHES["pop_mlp_correct"]
+        got = pop_mlp_correct(pop, x, y, **kw)
+        assert _cuda.LAUNCHES["pop_mlp_correct"] == before + 1
+        want = pop_mlp_correct_plain(pop, x, y, **kw)
+        assert tuple(got.shape) == (40,) and torch.equal(got, want)
+        assert (got[rows:] == 0).all()
+
+
+def _variation(dev, spec, pop, seed):
+    """One population's variation operands: parent frames from the two
+    halves of ``pop``, crossover gates, the gene table, slot keys and a
+    mutation rate."""
+    P = pop.shape[0] // 2
+    rng = np.random.default_rng(seed)
+    t = spec.table(dev)
+    return (pop[:P].contiguous(), pop[P:2 * P].contiguous(),
+            torch.as_tensor(rng.random(P) < 0.7, device=dev), t.low, t.high, t.is_mask,
+            t.mask_bits, t.ids, _slot_keys(prng.PRNGKey(seed, dev), (0, 1, 2)),
+            torch.tensor(0.3, dtype=torch.float32, device=dev))
+
+
+def _check_generation_n_dev(args, x, y, dev, **kw):
+    """K3's n_dev branch: one launch, equal to its plain version, the
+    nominal branch's children, column 0 (zero deltas) the nominal count,
+    all-zero deltas the nominal count on every instance."""
+    before = _cuda.LAUNCHES["pop_generation_kernel_mc"]
+    ch, cnt = pop_generation_kernel(*args, x, y, dev=dev, **kw)
+    assert _cuda.LAUNCHES["pop_generation_kernel_mc"] == before + 1
+    ch_p, cnt_p = pop_generation_plain(*args, x, y, dev=dev, **kw)
+    assert cnt.shape == (*ch.shape[:-1], dev.shape[-2])
+    assert torch.equal(ch, ch_p) and torch.equal(cnt, cnt_p)
+    ch_n, cnt_n = pop_generation_kernel(*args, x, y, **kw)
+    assert torch.equal(ch_n, ch) and torch.equal(cnt[..., 0], cnt_n)
+    _, cnt_z = pop_generation_kernel(*args, x, y, dev=torch.zeros_like(dev), **kw)
+    assert torch.equal(cnt_z, cnt_n[..., None].expand_as(cnt))
+
+
+@pytest.mark.parametrize("K", [1, 50])
+@pytest.mark.parametrize("sizes", MC_TOPOS)
+def test_generation_n_dev_every_topology_equals_plain(card, sizes, K):
+    """K3's n_dev branch (children made in the block, their tables built
+    there) at every topology K4 is tested on, with and without a sample
+    bound and a masked output column."""
+    spec, pop, x, y, dev, _ = _mc_case(card, sizes, K, seed=len(sizes) + K)
+    args = _variation(card, spec, pop, seed=K)
+    om = torch.ones(sizes[-1], dtype=torch.int32, device=card)
+    om[-1] = 0
+    for samples, mask in ((None, None), (555, om)):
+        _check_generation_n_dev(args, x, y, dev, spec=spec, n_valid_samples=samples,
+                                out_mask=mask)
+
+
+@pytest.mark.parametrize("P", [2, 6, 10])
+def test_generation_n_dev_small_populations_equal_plain(card, P):
+    """One pair of children a block: P / 2 = 1, 3 and 5 pairs, the odd ones
+    drawing a pair's swaps from two Threefry counters."""
+    spec, pop, x, y = _inputs(card, P=P, seed=P)
+    _check_generation_n_dev(_variation(card, spec, pop, seed=P), x, y,
+                            _deltas(spec, 8, card, seed=P), spec=spec)
+
+
+@pytest.mark.parametrize("sizes", [(21, 5, 10), (5, 4, 3, 2)])
+def test_table_kernels_lanes_with_ragged_samples_equal_plain(card, sizes):
+    """K1 and K3's n_dev branch over three lanes with their own sample
+    counts (labels −1 past them), output masks, delta tables, draw ids,
+    keys and mutation rates, in one launch each; K1 with a row bound."""
+    L, K, P = 3, 9, 16
+    cases = [_mc_case(card, sizes, K, P=2 * P, S=900, seed=i) for i in range(L)]
+    spec = cases[0][0]
+    pop, x, y, dev, high = (torch.stack([c[i] for c in cases]) for i in range(1, 6))
+    samp = torch.tensor([900, 311, 5], dtype=torch.int32, device=card)
+    for i in range(L):
+        y[i, int(samp[i]):] = -1
+    om = torch.ones((L, sizes[-1]), dtype=torch.int32, device=card)
+    om[1, 0] = 0
+    kw = dict(spec=spec, n_valid_samples=samp, out_mask=om)
+    n = torch.tensor(17, dtype=torch.int32, device=card)
+    got = pop_mlp_correct(pop, x, y, n_valid_rows=n, **kw)
+    assert tuple(got.shape) == (L, 2 * P) and (got[:, 17:] == 0).all()
+    assert torch.equal(got, pop_mlp_correct_plain(pop, x, y, n_valid_rows=n, **kw))
+    rng = np.random.default_rng(1)
+    lanes = [_variation(card, spec, pop[i], seed=10 + i) for i in range(L)]
+    args = [torch.stack([a[j] for a in lanes]) for j in range(10)]
+    args[7] = torch.stack([torch.as_tensor(rng.permutation(spec.n_genes).astype(np.int32),
+                                           device=card) for _ in range(L)])
+    args[9] = torch.tensor([0.3, 0.05, 0.5], dtype=torch.float32, device=card)
+    _check_generation_n_dev(tuple(args), x, y, dev, **kw)
+
+
+@pytest.mark.parametrize("sizes", [(16, 5, 10), (21, 5, 10), (6, 4, 3)])
+def test_table_kernels_smem_checks_agree_with_their_launchers(card, sizes):
+    """The sizes K1's and K3 n_dev's wrappers check are their launchers'
+    (``pop_mlp_correct_smem_bytes``, ``pop_generation_mc_smem_bytes``),
+    which ``ref.k1_smem_bytes`` and ``ref.generation_mc_smem_bytes``
+    compute for the card's limit; at the largest K the card admits, K3's
+    n_dev branch launches and equals its plain version, and one more
+    instance is refused."""
+    import ctypes
+
+    from repro_torch.kernels.pop_mlp.kernel import net_desc
+    from repro_torch.kernels.pop_mlp.ref import generation_mc_smem_bytes, k1_smem_bytes
+
+    spec = GenomeSpec(MLPTopology(sizes))
+    G = spec.n_genes
+    desc = ctypes.cast(_cuda.host_ints(net_desc(spec)), ctypes.c_void_p)
+    lib = _cuda.library()
+    limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    assert lib.pop_mlp_correct_smem_bytes(desc) == k1_smem_bytes(sizes, limit)
+    launcher = lambda K: lib.pop_generation_mc_smem_bytes(desc, G, K)
+    for K in (1, 8, 50, 120, 200, 400):
+        assert launcher(K) == generation_mc_smem_bytes(sizes, G, K, limit), K
+    k_max = 1
+    while launcher(k_max + 1) <= limit:
+        k_max += 1
+    spec, pop, x, y, dev, _ = _mc_case(card, sizes, k_max, P=8, S=160, seed=k_max)
+    _check_generation_n_dev(_variation(card, spec, pop, seed=k_max), x, y, dev, spec=spec)
+    with pytest.raises(ValueError, match="shared memory"):
+        pop_generation_kernel(*_variation(card, spec, pop, seed=k_max), x, y, spec=spec,
+                              dev=_deltas(spec, k_max + 1, card))
 
 
 def _lanes(dev, L, P=40, S=1100, seed=0):

@@ -27,11 +27,13 @@ from repro_torch.kernels.backend import BackendPolicy
 from repro_torch.kernels.pop_generation import (pop_generation_kernel,
                                                 pop_generation_plain,
                                                 population_generation)
-from repro_torch.kernels.pop_mlp.ref import (H100_SMEM_OPTIN, MC_BUCKETS, mc_bucket,
-                                             mc_layout, mc_smem_bytes, mc_tables,
+from repro_torch.kernels.pop_mlp.ref import (H100_SMEM_OPTIN, MC_BUCKETS, MC_TILES,
+                                             generation_mc_smem_bytes, k1_smem_bytes,
+                                             mc_bucket, mc_layout, mc_smem_bytes, mc_tables,
                                              pop_mlp_correct_mc_tables)
 from repro_torch.kernels.pop_mlp import (population_correct, pop_mlp_correct_mc,
                                          pop_mlp_correct_mc_plain)
+from repro_torch.kernels.pop_variation import pop_variation_plain
 from test_torch_interop import (NO_COUNTS, assert_bits_equal, assert_states_equal,
                                 jax_leaves, kernel_paths_on_cpu)
 
@@ -252,6 +254,37 @@ def test_mc_tables_arithmetic_matches_interpret_kernel(sizes, K):
             assert (got[rows:] == 0).all()
 
 
+@pytest.mark.parametrize("sizes", MC_TABLE_TOPOS)
+def test_k1_tables_arithmetic_matches_interpret_kernel(sizes):
+    """K1's arithmetic: the tables of the nominal device (one instance, no
+    deltas: ``dev`` None, as K1's kernel compiles the deltas out), read
+    through the compiled widths' padded layout and the general kernel's
+    packed one, against the reference Pallas ``pop_mlp_correct`` in
+    interpret mode, bit for bit, with a row bound, a sample bound over
+    −1-labelled padding and a masked output column; exponents at 0, at
+    max_exp, and at 33 and −2 (shl's zero)."""
+    spec_t, pop, _, x01, y = _edge_case(sizes, 1, seed=sum(sizes) + 100)
+    spec_j = jg.GenomeSpec(jg.MLPTopology(sizes))
+    n_samp, rows = 120, 7
+    y[n_samp:] = -1
+    om = np.ones(sizes[-1], np.int32)
+    om[-1] = 0
+    xj = jq.quantize_inputs(jnp.asarray(x01), 4)
+    xt = tq.quantize_inputs(torch.as_tensor(x01), 4)
+    ref = np.asarray(j_correct(
+        jnp.asarray(pop), xj, jnp.asarray(y), spec=spec_j, backend="interpret",
+        n_valid_rows=jnp.int32(rows), n_valid_samples=jnp.int32(n_samp),
+        out_mask=jnp.asarray(om)))
+    assert ref.shape == (10,)
+    for packed in (False, True):
+        got = pop_mlp_correct_mc_tables(
+            torch.as_tensor(pop), xt, torch.as_tensor(y), spec=spec_t, n_valid_rows=rows,
+            n_valid_samples=n_samp, out_mask=torch.as_tensor(om), packed=packed)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (10, 1)
+        assert_bits_equal(ref[:rows], got[:rows, 0], f"packed {packed}")
+        assert (got[rows:] == 0).all()
+
+
 def test_mc_tables_hold_the_clipped_signed_multipliers():
     """The tables themselves at pendigits (compiled widths: each layer
     padded to 4 words) and the general kernel's packed layout."""
@@ -304,11 +337,15 @@ def test_mc_tables_padded_into_compiled_widths():
     assert torch.equal(pad[3], packed[3])
 
 
+CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+
+
 def test_mc_buckets_match_the_kernel_source():
-    """The compiled widths listed here are those ``csrc/pop_mlp.cu``
-    compiles, and each of the paper's topologies and the suite's pads into
+    """The compiled widths listed here are those the table kernels compile
+    (``csrc/common.cuh``, which ``pop_mlp.cu`` and ``pop_generation.cu``
+    share), and each of the paper's topologies and the suite's pads into
     the smallest that holds it."""
-    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/csrc/pop_mlp.cu").read_text()
+    src = (CSRC / "common.cuh").read_text()
     line = re.search(r"constexpr McDims kMcBuckets\[\] = \{(.*)\};", src).group(1)
     assert tuple(tuple(map(int, b)) for b in re.findall(r"\{(\d+), (\d+), (\d+)\}", line)) \
         == MC_BUCKETS
@@ -319,16 +356,35 @@ def test_mc_buckets_match_the_kernel_source():
         == [None] * 4
 
 
+def test_mc_tiles_match_the_kernel_source():
+    """Each table kernel's tile listed here (chromosomes per block, samples
+    per thread, blocks per SM), which the shared-memory mirrors use, is the
+    one ``csrc/common.cuh`` compiles."""
+    src = (CSRC / "common.cuh").read_text()
+    for name, tile in MC_TILES.items():
+        m = re.search(rf"constexpr int k{name}Rows = (\d+), k{name}Samples = (\d+), "
+                      rf"k{name}BlocksPerSM = (\d+);", src)
+        assert m is not None, name
+        assert tuple(map(int, m.groups())) == tile, name
+    assert MC_TILES["K3"][0] % 2 == 0   # whole pairs of children
+
+
 def test_mc_smem_never_exceeds_the_earlier_layout():
-    """K4's packed tables (the general kernel's) never need more shared
-    memory than the layout they replace (genome tile, delta table, gene
-    bounds; the n_dev branch of the generation kernel keeps it), at any K,
-    for the compiled widths, edge topologies and 300 random ones of up to 4
-    layers of width up to 32; the compiled widths' padded tables run only
-    where they fit the card. So every K that launched before still launches
-    on an H100. K = 200 at pendigits is still past its 232,448 bytes a
-    block."""
-    from repro_torch.kernels.pop_generation.kernel import ndev_smem_bytes
+    """The table kernels' packed tables (their general kernel's) never need
+    more shared memory than the layouts they replace, at any K, for the
+    compiled widths, edge topologies and 300 random ones of up to 4 layers
+    of width up to 32: K4's and K3 ``n_dev``'s (its children's tile ahead of
+    the tables) against the layout both ran on before (a genome tile of 8
+    rows, the delta table, the gene bounds, the output mask and 8 rows of
+    counts), K1's against its genome tile of 8 rows; the compiled widths'
+    padded tables run only where they fit. So every K that launched before
+    still launches on an H100. K = 200 at pendigits is still past K4's
+    232,448 bytes a block."""
+    def old_mc(G, K):   # the earlier layout of K4 and K3's n_dev branch, in bytes
+        return 4 * (8 * G + K * G + G + 32 + 8 * K)
+
+    def old_k1(G):      # K1's earlier genome tile, output mask and counts
+        return 4 * (8 * G + 32 + 8)
 
     rng = np.random.default_rng(0)
     topos = list(MC_BUCKETS) + [(10, 3, 2), (21, 3, 3), (11, 2, 6), (11, 4, 7), (1, 1),
@@ -339,15 +395,23 @@ def test_mc_smem_never_exceeds_the_earlier_layout():
     for sizes in topos:
         G = tg.GenomeSpec(tg.MLPTopology(sizes)).n_genes
         for K in (1, 2, 3, 8, 13, 50, 130, 200, 456, 1000, 5000):
-            old = ndev_smem_bytes(G, K)
-            assert mc_smem_bytes(sizes, K, limit=0) <= old, (sizes, K)
-            assert old > H100_SMEM_OPTIN or mc_smem_bytes(sizes, K) <= H100_SMEM_OPTIN, (sizes, K)
+            old = old_mc(G, K)
+            for name, packed, card in (
+                    ("K4", mc_smem_bytes(sizes, K, limit=0), mc_smem_bytes(sizes, K)),
+                    ("K3 n_dev", generation_mc_smem_bytes(sizes, G, K, limit=0),
+                     generation_mc_smem_bytes(sizes, G, K))):
+                assert packed <= old, (name, sizes, K)
+                assert old > H100_SMEM_OPTIN or card <= H100_SMEM_OPTIN, (name, sizes, K)
+        assert k1_smem_bytes(sizes, limit=0) <= old_k1(G), sizes
+        assert k1_smem_bytes(sizes) <= H100_SMEM_OPTIN, sizes
     assert mc_smem_bytes((16, 5, 10), 200) > 232448 >= mc_smem_bytes((16, 5, 10), 130)
 
 
 @pytest.mark.parametrize("K", [1, 6])
 def test_generation_kernel_n_dev_plain_matches_interpret_kernel(K):
-    """K3's n_dev branch on its plain path against the reference
+    """K3's n_dev branch on its plain path and by its kernel's table
+    arithmetic (the K2 plain version's children through
+    ``pop_mlp_correct_mc_tables``, padded and packed) against the reference
     megakernel in interpret mode with the same deltas: the children equal
     the nominal branch's, the counts are (P, K)."""
     sizes = (6, 4, 3)
@@ -376,6 +440,15 @@ def test_generation_kernel_n_dev_plain_matches_interpret_kernel(K):
     assert_bits_equal(cnt_j, cnt_t, "counts")
     ch_n, cnt_n = pop_generation_plain(*args, spec=spec_t)
     assert torch.equal(ch_n, ch_t) and torch.equal(cnt_n, cnt_t[:, 0])
+    # K3 n_dev's arithmetic: the K2 plain version's children through the tables
+    # of their K instances (the kernel's tile is one pair; P / 2 = 5 is odd, so
+    # rows 4 and 5 draw their swaps from two Threefry counters)
+    children = pop_variation_plain(*args[:10])
+    assert_bits_equal(ch_j, children, "K2's children")
+    for packed in (False, True):
+        got = pop_mlp_correct_mc_tables(children, xt, torch.as_tensor(y), spec=spec_t, dev=dev,
+                                        gene_high=t.high, packed=packed)
+        assert_bits_equal(cnt_j, got, f"tables, packed {packed}")
 
 
 # -- the float32 order of the robust objective ---------------------------------
