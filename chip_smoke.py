@@ -10,11 +10,12 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    shared library (nvcc, sm_90a, one compile per source, started
    together, then one link), with ptxas's report (registers, shared
    memory, spills) on both K6 kernels, one line per compiled width, on both
-   K7 kernels, and on the table kernels (K1, K4, K3's n_dev branch) per
+   K7 kernels, and on the table kernels (K1, K4, both branches of K3) per
    compiled set of widths, and the table kernels' shared memory per block
    as their launchers ask for it (which the wrappers check, and
-   ``ref.mc_smem_bytes``, ``ref.k1_smem_bytes`` and
-   ``ref.generation_mc_smem_bytes`` must match);
+   ``ref.mc_smem_bytes``, ``ref.k1_smem_bytes``,
+   ``ref.generation_smem_bytes`` and ``ref.generation_mc_smem_bytes``
+   must match);
 3. kernels vs plain — each kernel's wrapper against its plain PyTorch
    version on the same CUDA tensors at the main path's shapes (pendigits
    and breast_cancer, pop 256, K = 8 device instances), exact equality
@@ -348,8 +349,10 @@ KERNEL_ENTRIES = {
                 "K4 pop_mlp_tables_kernel<{0}, {1}, {2}, true>",
                 r"pop_mlp_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0E":
                 "K1 pop_mlp_tables_kernel<{0}, {1}, {2}, false>"},
-    "pop_generation": {r"pop_generation_mc_kernelILi(\d+)ELi(\d+)ELi(\d+)E":
-                       "K3 n_dev pop_generation_mc_kernel<{0}, {1}, {2}>"},
+    "pop_generation": {r"pop_generation_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb1E":
+                       "K3 n_dev pop_generation_tables_kernel<{0}, {1}, {2}, true>",
+                       r"pop_generation_tables_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0E":
+                       "K3 nominal pop_generation_tables_kernel<{0}, {1}, {2}, false>"},
 }
 # The redesigned kernels' times before their redesign, quoted from PERF.md's
 # kernel table (chip_smoke.py's own run before the redesign, NVIDIA H100 80GB
@@ -358,14 +361,16 @@ KERNEL_ENTRIES = {
 EARLIER_MS = {"pop_mlp_correct": 0.3962, "pop_mlp_correct lanes": 0.7380,
               "pop_generation_kernel_mc": 2.4148, "pop_generation_kernel_mc lanes": 4.9892,
               "pop_mlp_correct_mc": 2.5364, "pop_mlp_correct_mc lanes": 4.4008,
+              "pop_generation_kernel": 0.3336, "pop_generation_kernel lanes": 0.6035,
               "flash_attention float32": 9.1310}
 
 
 def launch_smem(kernel: str, sizes, n_dev: int = 1) -> int:
     """A table kernel's shared memory per block as its launcher asks for it
     on this card (the size its wrapper checks): ``kernel`` "K4"
-    (``pop_mlp_correct_mc_smem_bytes``), "K1" (``pop_mlp_correct_smem_bytes``)
-    or "K3" (the n_dev branch, ``pop_generation_mc_smem_bytes``); raises
+    (``pop_mlp_correct_mc_smem_bytes``), "K1" (``pop_mlp_correct_smem_bytes``),
+    "K3" (the n_dev branch, ``pop_generation_mc_smem_bytes``) or "K3N" (the
+    nominal branch, ``pop_generation_smem_bytes``); raises
     unless its CPU mirror in ``kernels/pop_mlp/ref.py`` computes the same
     for the card's limit."""
     import ctypes
@@ -388,6 +393,8 @@ def launch_smem(kernel: str, sizes, n_dev: int = 1) -> int:
                lambda: ref.k1_smem_bytes(sizes, limit)),
         "K3": (lambda: lib.pop_generation_mc_smem_bytes(desc, spec.n_genes, n_dev),
                lambda: ref.generation_mc_smem_bytes(sizes, spec.n_genes, n_dev, limit)),
+        "K3N": (lambda: lib.pop_generation_smem_bytes(desc, spec.n_genes),
+                lambda: ref.generation_smem_bytes(sizes, spec.n_genes, limit)),
     }[kernel]
     if got() != want():
         raise AssertionError(f"{kernel} at {sizes}, K={n_dev}: the launcher asks for {got()} "
@@ -709,20 +716,14 @@ def stacked_suite(problems, seeds):
                                   for _ in seeds])
 
 
-def lane_kernel_checks(dev) -> dict:
-    """Phase 3 for the lane axis: each GA kernel launched once for the 15
-    lanes of the suite (padded layout, each lane its own samples, a shared
-    row bound below P) against its plain version, exactly."""
+def suite_lanes(dev) -> dict:
+    """The GA kernels' operands for the 15 lanes of the suite (padded
+    layout, each lane its own samples): the stacked problem, its lane data,
+    2P genomes a lane, K = 8 delta tables, the variation operands and the
+    fitness keywords."""
     import torch
     from repro_torch.core import engine, prng
     from repro_torch.core.genome import _slot_keys, random_population
-    from repro_torch.kernels.pop_generation.kernel import (pop_generation_kernel,
-                                                           pop_generation_plain)
-    from repro_torch.kernels.pop_mlp.kernel import (pop_mlp_correct, pop_mlp_correct_mc,
-                                                    pop_mlp_correct_mc_plain,
-                                                    pop_mlp_correct_plain)
-    from repro_torch.kernels.pop_variation.kernel import (pop_variation_kernel,
-                                                          pop_variation_plain)
 
     cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS)
     stacked = stacked_suite([p for _, p, _ in suite_problems(dev, cfg)], SUITE_SEEDS)
@@ -739,6 +740,26 @@ def lane_kernel_checks(dev) -> dict:
     var = (pop[:, :P].contiguous(), pop[:, P:].contiguous(), do, t.low, t.high, t.is_mask,
            t.mask_bits, t.ids, keys, d.mutation_rate_gene)
     data = dict(spec=stacked.spec, n_valid_samples=d.n_valid_samples, out_mask=d.out_mask)
+    return dict(stacked=stacked, d=d, pop=pop, deltas=deltas, var=var, data=data)
+
+
+def lane_kernel_checks(dev) -> dict:
+    """Phase 3 for the lane axis: each GA kernel launched once for the 15
+    lanes of the suite (padded layout, each lane its own samples, a shared
+    row bound below P) against its plain version, exactly."""
+    import torch
+    from repro_torch.kernels.pop_generation.kernel import (pop_generation_kernel,
+                                                           pop_generation_plain)
+    from repro_torch.kernels.pop_mlp.kernel import (pop_mlp_correct, pop_mlp_correct_mc,
+                                                    pop_mlp_correct_mc_plain,
+                                                    pop_mlp_correct_plain)
+    from repro_torch.kernels.pop_variation.kernel import (pop_variation_kernel,
+                                                          pop_variation_plain)
+
+    lanes = suite_lanes(dev)
+    stacked, d, pop, deltas, var, data = (lanes[k] for k in ("stacked", "d", "pop", "deltas",
+                                                             "var", "data"))
+    L, P, t = stacked.n_lanes, SUITE_POP, d.genes
     err = {}
     for rows in (2 * P, 77):
         n = torch.tensor(rows, dtype=torch.int32, device=dev)
@@ -765,8 +786,7 @@ def lane_kernel_checks(dev) -> dict:
           f"pop_mlp_correct_mc (rows {2 * P} and 77), pop_variation_kernel, "
           f"pop_generation_kernel and its n_dev branch, one launch each for all lanes, equal "
           f"their plain versions")
-    return dict(stacked=stacked, d=d, pop=pop, deltas=deltas, var=var, data=data, err=err,
-                samp=samp)
+    return dict(lanes, err=err, samp=samp)
 
 
 def batched_paths(dev) -> dict:
@@ -1100,6 +1120,7 @@ def main() -> int:
           f"memory per block")
     for name, kernel, n_dev in (("K4 pop_mlp_correct_mc", "K4", K_DEV),
                                 ("K3 n_dev pop_generation_kernel_mc", "K3", K_DEV),
+                                ("K3 nominal pop_generation_kernel", "K3N", 1),
                                 ("K1 pop_mlp_correct", "K1", 1)):
         print(f"[build] {name}: dynamic shared memory per block from its launcher at "
               f"K={n_dev}: {launch_smem(kernel, (16, 5, 10), n_dev)} bytes at pendigits "

@@ -1,13 +1,13 @@
 // Device functions shared by the GA kernels (sm_90a):
 //   * the counter-based Threefry-2x32 draw of repro_torch/core/genome.py,
-//   * the integer forward pass + first-maximum argmax of repro_torch/core/mlp.py
-//     on genomes in shared memory, and the tile counter that sweeps samples
-//     over them (K3's nominal branch: predict, count_tile),
-//   * the per-gene variation of repro_torch/kernels/pop_variation/ref.py,
+//   * the per-gene variation of repro_torch/kernels/pop_variation/ref.py
+//     (vary_gene, child_pair),
 //   * the tables of per-instance weight multipliers and the forwards that read
-//     them (McTables, mc_build, mc_forwards_fixed, mc_forwards_any, mc_count),
-//     which K1, K4 and K3's n_dev branch share, with the rule that picks the
-//     widths their forwards run in (kMcBuckets, mc_plan).
+//     them (McTables, mc_build, mc_forwards_fixed, mc_forwards_any, mc_count):
+//     the integer forward pass + first-maximum argmax of repro_torch/core/mlp.py
+//     as every fitness kernel runs it (K1, K4 and both branches of K3), with
+//     the rule that picks the widths their forwards run in (kMcBuckets,
+//     mc_plan) and each kernel's tile.
 //
 // Bit-identity rules (each one mirrors XLA, which the JAX reference runs on):
 //   * all hashing is uint32_t with natural wraparound;
@@ -25,11 +25,7 @@
 namespace repro_torch {
 
 constexpr int kMaxLayers = 4;
-constexpr int kMaxWidth = 32;   // widest layer the forward pass holds in registers
-// K3's nominal branch: children per block, threads, samples per block (grid.y)
-constexpr int kPopTile = 8;
-constexpr int kThreads = 256;
-constexpr int kSampleChunk = 512;
+constexpr int kMaxWidth = 32;   // widest layer net_from_desc takes
 
 struct Layer {
   int masks, signs, exps, bias, bshift, rshift, fan_in, fan_out;  // gene offsets and sizes
@@ -88,83 +84,6 @@ __device__ __forceinline__ int32_t shl(int32_t x, int32_t s) {
 
 __device__ __forceinline__ int32_t sar(int32_t x, int32_t s) {
   return x >> ((s < 0 || s > 31) ? 31 : s);
-}
-
-// The exponent reader of predict(): gene e of genome g as the forward pass uses it.
-struct NominalExp {
-  __device__ __forceinline__ int32_t operator()(const int32_t* g, int e) const { return g[e]; }
-};
-
-// Predicted class of genome g (shared memory) for one sample x (registers).
-// (static: every source includes this header and links into one library)
-template <class Exp>
-static __device__ int predict(const int32_t* __restrict__ g, const int32_t* x,
-                              const Net& net, const int32_t* out_mask, const Exp& exp) {
-  int32_t h[kMaxWidth];
-  int32_t o[kMaxWidth];
-  for (int i = 0; i < net.layer[0].fan_in; ++i) h[i] = x[i];
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer L = net.layer[l];
-    const int32_t bsh = g[L.bshift];
-    const int32_t rsh = g[L.rshift];
-    const bool last = (l == net.n_layers - 1);
-    for (int j = 0; j < L.fan_out; ++j) {
-      uint32_t acc = 0;
-      for (int i = 0; i < L.fan_in; ++i) {
-        const int w = i * L.fan_out + j;
-        const uint32_t term = static_cast<uint32_t>(shl(h[i] & g[L.masks + w], exp(g, L.exps + w)));
-        const uint32_t sign = static_cast<uint32_t>(g[L.signs + w]) * 2u - 1u;  // {0,1} -> {-1,+1}
-        acc += sign * term;
-      }
-      acc += static_cast<uint32_t>(shl(g[L.bias + j], bsh));
-      int32_t a = static_cast<int32_t>(acc);
-      if (!last) a = min(max(sar(a, rsh), 0), net.act_max);
-      o[j] = a;
-    }
-    for (int j = 0; j < L.fan_out; ++j) h[j] = o[j];
-  }
-  const int n_out = net.layer[net.n_layers - 1].fan_out;
-  int best = 0;
-  int32_t best_v = out_mask[0] > 0 ? h[0] : INT32_MIN;
-  for (int j = 1; j < n_out; ++j) {
-    const int32_t v = out_mask[j] > 0 ? h[j] : INT32_MIN;
-    if (v > best_v) {
-      best_v = v;
-      best = j;
-    }
-  }
-  return best;
-}
-
-// Adds the correct predictions of n_rows genomes (shared memory, row stride G)
-// over samples [s_begin, s_end) into counts[0..n_rows). Threads stride over the
-// samples; a warp shuffle and shared-memory atomics reduce per genome, then one
-// integer atomicAdd per genome and block (order independent, so exact).
-// `red` is kPopTile ints of shared memory, zeroed and synchronised by the caller.
-static __device__ void count_tile(const int32_t* g_tile, int n_rows, int G,
-                                  const int32_t* __restrict__ x,
-                                  const int32_t* __restrict__ labels, int n_in, int s_begin,
-                                  int s_end, const Net& net, const int32_t* out_mask,
-                                  int32_t* red, int32_t* counts) {
-  int local[kPopTile];
-#pragma unroll
-  for (int p = 0; p < kPopTile; ++p) local[p] = 0;
-  for (int s = s_begin + threadIdx.x; s < s_end; s += blockDim.x) {
-    int32_t xs[kMaxWidth];
-    for (int i = 0; i < n_in; ++i) xs[i] = x[static_cast<size_t>(s) * n_in + i];
-    const int32_t y = labels[s];
-#pragma unroll
-    for (int p = 0; p < kPopTile; ++p)
-      if (p < n_rows) local[p] += (predict(g_tile + p * G, xs, net, out_mask, NominalExp{}) == y);
-  }
-#pragma unroll
-  for (int p = 0; p < kPopTile; ++p) {
-    int v = local[p];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if ((threadIdx.x & 31) == 0 && v) atomicAdd(&red[p], v);
-  }
-  __syncthreads();
-  if (threadIdx.x < n_rows && red[threadIdx.x]) atomicAdd(&counts[threadIdx.x], red[threadIdx.x]);
 }
 
 struct Genes {
@@ -230,10 +149,6 @@ __device__ __forceinline__ void child_pair(int r, int j, int P, int G,
                  bits_to_open01(d1), bits_to_open01(v1), lo, hi, im, mb, pm);
 }
 
-inline int fitness_smem_bytes(int G) {
-  return static_cast<int>(sizeof(int32_t)) * (kPopTile * G + kMaxWidth + kPopTile);
-}
-
 // Raises a kernel's dynamic shared-memory limit to `smem` bytes where it needs
 // more than the default 48 KB; the error of a size past the card's limit.
 template <class Kernel>
@@ -242,7 +157,7 @@ inline cudaError_t allow_smem(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// -- the tables of per-instance weight multipliers (K1, K4, K3 n_dev) ------------
+// -- the tables of per-instance weight multipliers (K1, K4, K3) -------------------
 //
 // Instance k's term of a weight is sign * shl(h & mask, e_k), e_k the exponent
 // gene moved by the instance's delta and clipped into [0, high - 1] (a zero
@@ -252,9 +167,9 @@ inline cudaError_t allow_smem(Kernel kernel, int smem) {
 // for its chromosomes, the tables its forwards read (McTables): each
 // instance's multiplier of each weight, the masks, each neuron's shifted bias
 // and each layer's right shift. A forward then costs an AND and a multiply-add
-// per weight, its table operands broadcast loads. The nominal device (K1) is
-// one instance with e_k = e: the same tables and forwards with the deltas
-// compiled out (kDev false).
+// per weight, its table operands broadcast loads. The nominal device (K1, K3's
+// nominal branch) is one instance with e_k = e: the same tables and forwards
+// with the deltas compiled out (kDev false).
 // (kernels/pop_mlp/ref.py mc_tables builds the same tables on the CPU.)
 
 constexpr int kMcThreads = 128;   // threads per block
@@ -264,13 +179,14 @@ constexpr int kMcThreads = 128;   // threads per block
 // the blocks per SM its compiled forwards are held to (BlocksPerSM, for
 // __launch_bounds__: 4 is 128 registers a thread). A block's table build
 // waits on memory and other blocks hide it; the registers this takes from the
-// forwards cost them less (a few spilled words). K3's n_dev branch takes one
-// pair of children (pop_generation.cu's header says why). The samples a
-// thread takes and K3's cap were chosen by scripts/mc_tiles.py's timings
-// (PERF.md section 6). (kernels/pop_mlp/ref.py MC_TILES lists the same.)
+// forwards cost them less (a few spilled words). K3's tiles hold whole pairs
+// of children (pop_generation.cu's header says why). The samples a thread
+// takes and K3's rows and caps were chosen by scripts/mc_tiles.py's timings
+// (PERF.md section 6). (kernels/pop_mlp/ref.py MC_TILES lists the tiles.)
 constexpr int kK4Rows = 3, kK4Samples = 1, kK4BlocksPerSM = 4;   // K4: K instances
 constexpr int kK1Rows = 3, kK1Samples = 4, kK1BlocksPerSM = 4;   // K1: the nominal device
 constexpr int kK3Rows = 2, kK3Samples = 4, kK3BlocksPerSM = 4;   // K3's n_dev branch
+constexpr int kK3NRows = 2, kK3NSamples = 8, kK3NBlocksPerSM = 4;   // K3's nominal branch
 
 // Where a row's weights and neurons sit in the tables, laid out for the widths
 // fi[l] -> fo[l] of each layer: layer l's weight (i, j) at word woff[l] + i

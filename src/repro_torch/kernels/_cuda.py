@@ -58,7 +58,7 @@ _SIGNATURES = {
 }
 # Queries beside the launchers: the bytes of shared memory a launcher asks for.
 _QUERIES = {"pop_mlp_correct_smem_bytes": (_P,), "pop_mlp_correct_mc_smem_bytes": (_P, _I),
-            "pop_generation_mc_smem_bytes": (_P, _I, _I)}
+            "pop_generation_smem_bytes": (_P, _I), "pop_generation_mc_smem_bytes": (_P, _I, _I)}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}

@@ -6,12 +6,14 @@ pop_generation_kernel``: pre-gathered parent frames + the dataset → ((P, G)
 int32 children, (P,) int32 correct counts). Each tile's children are made
 by the variation math of ``pop_variation`` and scored by the fitness math
 of ``pop_mlp`` without leaving the block's shared memory. Every child is
-evaluated. Its ``n_dev`` branch (``dev``, a (K, G) device-variation delta
-table) scores each child on the K perturbed device instances instead:
-(P, K) counts, the same children, from the tables of per-instance weight
-multipliers of ``pop_mlp_correct_mc`` built for the children in the block
-(the launcher's ``pop_generation_mc_smem_bytes`` gives the block's shared
-memory, which the wrapper checks).
+evaluated, from the tables of per-instance weight multipliers of
+``pop_mlp_correct_mc`` built for the children in the block at one
+instance, as ``pop_mlp_correct`` runs them. Its ``n_dev`` branch (``dev``,
+a (K, G) device-variation delta table) scores each child on the K
+perturbed device instances instead: (P, K) counts, the same children. The
+launchers' ``pop_generation_smem_bytes`` and
+``pop_generation_mc_smem_bytes`` give each branch's shared memory per
+block, which the wrapper checks.
 
 Every operand may carry a leading lane axis: L independent populations made
 and scored in one launch (a single one is the case L = 1).
@@ -86,13 +88,15 @@ def pop_generation_call(a_rows, b_rows, do_rows, table_low, table_high,
     head = (*(o[k].data_ptr() for k in VARIATION_OPERANDS), L, P, G, x_int.data_ptr(),
             labels.data_ptr(), S, n_in, samp.data_ptr(), om.data_ptr())
     keep = (*o.values(), x_int, labels, samp, om, desc, children)
+    lib = _cuda.library()
     if deltas is None:
+        _cuda.check_smem(lib.pop_generation_smem_bytes(desc, G), dev,
+                         f"pop_generation_kernel at {spec.topo.sizes}")
         counts = torch.zeros((L, P), dtype=torch.int32, device=dev)
         launch = _cuda.Launch("pop_generation_kernel", "pop_generation_launch",
                               (*head, desc, children.data_ptr(), counts.data_ptr()),
                               (*keep, counts))
     else:
-        lib = _cuda.library()
         d, _ = check_deltas(deltas, o["high"], L, G, dev,
                             lambda K: lib.pop_generation_mc_smem_bytes(desc, G, K))
         counts = torch.zeros((L, P, d.shape[1]), dtype=torch.int32, device=dev)

@@ -11,12 +11,13 @@
                             CUDA kernel.
 ``pop_mlp_correct_mc_tables`` — the same counts by the arithmetic of the
                             table kernels (K4, K1 at one instance with no
-                            deltas, K3's ``n_dev`` branch on its children):
+                            deltas, both branches of K3 on their children):
                             per-(chromosome, instance) signed multipliers,
                             shifted biases and right shifts in their padded
                             table layout (``mc_tables``, ``mc_layout``), and
                             the kernels' shared memory (``mc_smem_bytes``,
-                            ``k1_smem_bytes``, ``generation_mc_smem_bytes``).
+                            ``k1_smem_bytes``, ``generation_smem_bytes``,
+                            ``generation_mc_smem_bytes``).
 """
 from __future__ import annotations
 
@@ -93,9 +94,10 @@ def _tiled(count, val_shape, pop, x_int, labels, pop_tile, sample_tile,
 
 # -- the table kernels' arithmetic (csrc/common.cuh McTables) on the CPU ---------
 
-# csrc/common.cuh kK4*, kK1*, kK3*: each table kernel's (chromosomes per
-# block, samples per thread, blocks per SM)
-MC_TILES = {"K4": (3, 1, 4), "K1": (3, 4, 4), "K3": (2, 4, 4)}
+# csrc/common.cuh kK4*, kK1*, kK3* (K3's n_dev branch), kK3N* (its nominal
+# branch): each table kernel's (chromosomes per block, samples per thread,
+# blocks per SM)
+MC_TILES = {"K4": (3, 1, 4), "K1": (3, 4, 4), "K3": (2, 4, 4), "K3N": (2, 8, 4)}
 MAX_LAYERS = 4     # csrc/common.cuh kMaxLayers
 MAX_WIDTH = 32     # csrc/common.cuh kMaxWidth
 # the (input, hidden, output) widths the table kernels have forwards compiled
@@ -173,15 +175,25 @@ def k1_smem_bytes(sizes, limit: int = H100_SMEM_OPTIN) -> int:
     return mc_smem_bytes(sizes, 1, limit, rows=MC_TILES["K1"][0])
 
 
+def _generation_smem_bytes(tile: str, sizes, n_genes: int, n_dev: int, limit: int) -> int:
+    rows = MC_TILES[tile][0]
+    children = -(-rows * n_genes // 4) * 4
+    return mc_smem_bytes(sizes, n_dev, limit, rows=rows, extra=children)
+
+
+def generation_smem_bytes(sizes, n_genes: int, limit: int = H100_SMEM_OPTIN) -> int:
+    """K3's nominal branch's dynamic shared memory per block
+    (``csrc/pop_generation.cu`` ``pop_generation_smem_bytes``): its
+    children's tile (rows × ``n_genes`` words, rounded up to a multiple of
+    4), then the tables of those rows at one instance."""
+    return _generation_smem_bytes("K3N", sizes, n_genes, 1, limit)
+
+
 def generation_mc_smem_bytes(sizes, n_genes: int, n_dev: int,
                              limit: int = H100_SMEM_OPTIN) -> int:
-    """K3's ``n_dev`` branch's dynamic shared memory per block
-    (``csrc/pop_generation.cu`` ``pop_generation_mc_smem_bytes``): its
-    children's tile (rows × ``n_genes`` words, rounded up to a multiple of
-    4), then the tables of those rows at n_dev instances."""
-    rows = MC_TILES["K3"][0]
-    tile = -(-rows * n_genes // 4) * 4
-    return mc_smem_bytes(sizes, n_dev, limit, rows=rows, extra=tile)
+    """K3's ``n_dev`` branch's (``pop_generation_mc_smem_bytes``): the
+    same layout for its own tile, with the tables at n_dev instances."""
+    return _generation_smem_bytes("K3", sizes, n_genes, n_dev, limit)
 
 
 def mc_tables(pop, dev, gene_high, *, spec: GenomeSpec, packed: bool = False):

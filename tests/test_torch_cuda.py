@@ -1,12 +1,13 @@
 """Each CUDA kernel against its plain version on the card (marker
 ``cuda``): pendigits-like shapes, row/sample bounds, device-variation
 delta tables with K = 1 and 6, exact equality; the table kernels (K4, K1
-and K3's n_dev branch) at the paper's and the suite's topologies (in their
-compiled widths), at a smaller one padded into them and at two their
+and both branches of K3) at the paper's and the suite's topologies (in
+their compiled widths), at a smaller one padded into them and at two their
 general kernel runs, K = 1 and 50, exponents at both ends of their range,
-ragged lanes, K3 n_dev at 1, 3 and 5 pairs of children, each launcher's
-shared-memory size against its CPU mirror, and the largest K the card
-admits (where padded tables no longer fit and the general kernel runs);
+ragged lanes (K3 nominal at the suite's 15), both K3 branches at 1, 3 and
+5 pairs of children, each launcher's shared-memory size against its CPU
+mirror and the size its wrapper checks, and the largest K the card admits
+(where padded tables no longer fit and the general kernel runs);
 the lane axis of the GA
 kernels at L = 1 and 3 (unequal per-lane sample counts, a shared row
 bound), one launch for all lanes; the probe kernel and its memo; the LM-side kernels at
@@ -378,6 +379,91 @@ def test_table_kernels_smem_checks_agree_with_their_launchers(card, sizes):
     with pytest.raises(ValueError, match="shared memory"):
         pop_generation_kernel(*_variation(card, spec, pop, seed=k_max), x, y, spec=spec,
                               dev=_deltas(spec, k_max + 1, card))
+
+
+# -- K3's nominal branch on the tables at one instance -----------------------
+
+def _check_generation_nominal(args, x, y, **kw):
+    """K3's nominal branch: one launch, children and (…, P) counts equal to
+    its plain version, the children K2's."""
+    before = _cuda.LAUNCHES["pop_generation_kernel"]
+    ch, cnt = pop_generation_kernel(*args, x, y, **kw)
+    assert _cuda.LAUNCHES["pop_generation_kernel"] == before + 1
+    ch_p, cnt_p = pop_generation_plain(*args, x, y, **kw)
+    assert cnt.shape == ch.shape[:-1] and cnt.dtype == torch.int32
+    assert torch.equal(ch, ch_p) and torch.equal(cnt, cnt_p)
+    assert torch.equal(ch, pop_variation_plain(*args))
+
+
+@pytest.mark.parametrize("sizes", MC_TOPOS)
+def test_generation_nominal_every_topology_equals_plain(card, sizes):
+    """K3's nominal branch (children made in the block, their tables built
+    there at one instance) at every topology K4 is tested on, with and
+    without a sample bound and a masked output column."""
+    spec, pop, x, y, _, _ = _mc_case(card, sizes, 1, seed=len(sizes) + 7)
+    args = _variation(card, spec, pop, seed=len(sizes))
+    om = torch.ones(sizes[-1], dtype=torch.int32, device=card)
+    om[-1] = 0
+    for samples, mask in ((None, None), (555, om)):
+        _check_generation_nominal(args, x, y, spec=spec, n_valid_samples=samples,
+                                  out_mask=mask)
+
+
+@pytest.mark.parametrize("P", [2, 6, 10])
+def test_generation_nominal_small_populations_equal_plain(card, P):
+    """P / 2 = 1, 3 and 5 pairs of children: a tile past the population's
+    end, and odd pair counts drawing a pair's swaps from two Threefry
+    counters."""
+    spec, pop, x, y = _inputs(card, P=P, seed=P + 1)
+    _check_generation_nominal(_variation(card, spec, pop, seed=P + 1), x, y, spec=spec)
+
+
+def test_generation_nominal_fifteen_lanes_with_ragged_samples_equal_plain(card):
+    """The suite's shape: 15 lanes of P = 64 at the padded (21, 5, 10), S =
+    7696 rows a lane of which each counts its own (labels −1 past them,
+    one lane none, one fewer than a block's chunk), their own output masks,
+    draw ids, keys and mutation rates, in one launch."""
+    L, P, S, sizes = 15, 64, 7696, (21, 5, 10)
+    cases = [_mc_case(card, sizes, 1, P=2 * P, S=S, seed=20 + i) for i in range(L)]
+    spec = cases[0][0]
+    pop, x, y = (torch.stack([c[i] for c in cases]) for i in range(1, 4))
+    rng = np.random.default_rng(15)
+    samp = torch.as_tensor([S, 0, 100, 489, 5000, *rng.integers(1, S, L - 5)],
+                           dtype=torch.int32, device=card)
+    for i in range(L):
+        y[i, int(samp[i]):] = -1
+    om = torch.ones((L, sizes[-1]), dtype=torch.int32, device=card)
+    om[::4, 3:] = 0
+    lanes = [_variation(card, spec, pop[i], seed=30 + i) for i in range(L)]
+    args = [torch.stack([a[j] for a in lanes]) for j in range(10)]
+    args[7] = torch.stack([torch.as_tensor(rng.permutation(spec.n_genes).astype(np.int32),
+                                           device=card) for _ in range(L)])
+    args[9] = torch.as_tensor(rng.random(L) * 0.4, dtype=torch.float32, device=card)
+    _check_generation_nominal(tuple(args), x, y, spec=spec, n_valid_samples=samp, out_mask=om)
+
+
+@pytest.mark.parametrize("sizes", [(16, 5, 10), (21, 5, 10), (6, 4, 3), (5, 4, 3, 2)])
+def test_generation_nominal_smem_check_agrees_with_its_launcher(card, sizes, monkeypatch):
+    """The size K3 nominal's wrapper checks is its launcher's
+    (``pop_generation_smem_bytes``), which ``ref.generation_smem_bytes``
+    computes for the card's limit."""
+    import ctypes
+
+    from repro_torch.kernels.pop_mlp.kernel import net_desc
+    from repro_torch.kernels.pop_mlp.ref import generation_smem_bytes
+
+    spec, pop, x, y, _, _ = _mc_case(card, sizes, 1, P=8, S=300, seed=3)
+    G = spec.n_genes
+    desc = ctypes.cast(_cuda.host_ints(net_desc(spec)), ctypes.c_void_p)
+    launcher = _cuda.library().pop_generation_smem_bytes(desc, G)
+    limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    assert launcher == generation_smem_bytes(sizes, G, limit)
+    checked = []
+    check = _cuda.check_smem
+    monkeypatch.setattr(_cuda, "check_smem",
+                        lambda n, dev, what: checked.append(n) or check(n, dev, what))
+    _check_generation_nominal(_variation(card, spec, pop, seed=3), x, y, spec=spec)
+    assert checked == [launcher]
 
 
 def _lanes(dev, L, P=40, S=1100, seed=0):

@@ -366,7 +366,7 @@ def test_mc_tiles_match_the_kernel_source():
                       rf"k{name}BlocksPerSM = (\d+);", src)
         assert m is not None, name
         assert tuple(map(int, m.groups())) == tile, name
-    assert MC_TILES["K3"][0] % 2 == 0   # whole pairs of children
+    assert MC_TILES["K3"][0] % 2 == 0 and MC_TILES["K3N"][0] % 2 == 0   # whole pairs
 
 
 def test_mc_smem_never_exceeds_the_earlier_layout():
