@@ -35,17 +35,32 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    counts set to 0 just before it and read just after, each launching its
    kernels once per generation for all lanes: ``run_suite`` over the
    paper's five datasets x 3 seeds (15 lanes, pop 64, 20 generations,
-   2 doping genomes per dataset, generation auto), ``run_grid`` at
+   each dataset doped with its 4 calibrated genomes and bounded by its
+   bespoke baseline, generation auto), ``run_grid`` at
    pendigits pop 256 (2 seeds x 3 mutation rates, 10 generations,
    generation ref and phases) and ``run_batch`` on the device-variation
    path (pendigits pop 256, seeds 0 and 1, K = 8); every cell must equal
    its sequential unpadded ``GATrainer.run`` on the card (every field, the
-   EvalCache, ``unique_evals``, ``cache_hits``); a small suite on the card
-   must equal the CPU's, and a generation-"ref" run that makes EvalCache
+   EvalCache, ``unique_evals``, ``cache_hits``); a small doped suite on the
+   card must equal the CPU's, and a generation-"ref" run that makes EvalCache
    hits must equal the CPU's, cache included;
 4c. the fallback chain's probe: ``resolve_backends(..., fallback=True)``
    must launch the probe kernel once, downgrade nothing and warn nothing,
    then answer from its memo;
+4d. the paper's pipeline at pendigits (``examples/quickstart.py``):
+   ``train_float_mlp`` on the card (800 steps, 3 restarts), its train
+   accuracy within 0.002 of the same training on the CPU from the same
+   CPU-drawn weights; ``exact_bespoke_baseline`` and ``calibrated_seeds``
+   on the card equal to the CPU's on that net, bit for bit; the doped
+   ``GATrainer.run`` (baseline the bespoke accuracy, pop 256, 20
+   generations) under generation auto and phases, bit-identical, each a
+   counted path launching K3, or K2 and K1; ``best_within_loss`` on its
+   front; ``post_training_approx`` on the card (one K1 launch a trial,
+   counted) equal to the CPU's; ``emit_verilog`` of the chosen design,
+   whose simulated predictions (``evaluate_genome_python``) equal
+   ``mlp_predict`` on the card and whose correct count equals K1's. The
+   suite of 4b runs on each dataset's calibrated genomes and bespoke
+   baseline, from one float net per dataset made here;
 5. LM-side ops, the third path, with the launch counts set to 0 just
    before it and read just after — ``state_scan`` at mamba2-130m width,
    ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
@@ -635,9 +650,11 @@ def lm_numbers(lm: dict, n_sm: int, clock_hz: float, smi: str) -> list:
 # -- the batched paths (lanes) ----------------------------------------------------
 
 # the paper's suite (benchmarks/common.py: GA_POP 64, N_SEEDS 3), its 60
-# generations cut to 20 for time; 2 seeded random doping genomes per dataset
+# generations cut to 20 for time; each dataset doped with its calibrated
+# genomes and bounded by its bespoke baseline, from one float net shared by
+# its seeds (benchmarks/common.py:_ga_setup)
 SUITE_DATASETS = ("breast_cancer", "cardio", "pendigits", "redwine", "whitewine")
-SUITE_POP, SUITE_SEEDS, SUITE_GENS, SUITE_DOPE = 64, (0, 1, 2), 20, 2
+SUITE_POP, SUITE_SEEDS, SUITE_GENS = 64, (0, 1, 2), 20
 GRID_POP, GRID_SEEDS, GRID_RATES, GRID_GENS = 256, (0, 1), (0.01, 0.02, 0.05), 10
 GA_KERNELS = ("pop_mlp_correct", "pop_variation_kernel", "pop_generation_kernel",
               "pop_mlp_correct_mc", "pop_generation_kernel_mc")
@@ -689,19 +706,23 @@ def require_launches(what: str, got: dict, want: dict):
                              f"per generation for all lanes)")
 
 
-def suite_problems(dev, cfg):
+def suite_problems(dev, cfg, baselines: dict | None = None):
+    """(dataset, Problem, doping genomes) of each suite dataset; with
+    ``baselines`` each is bounded by its bespoke baseline's accuracy and
+    doped with its calibrated genomes (:func:`paper_baseline`), else the
+    1.0 baseline and no doping (the kernels' operands only)."""
     from repro_torch.core import engine
-    from repro_torch.core.genome import GenomeSpec, MLPTopology
+    from repro_torch.core.genome import MLPTopology
     from repro_torch.data import load_dataset
 
-    rng = np.random.default_rng(1)
     out = []
     for name in SUITE_DATASETS:
         ds = load_dataset(name)
-        spec = GenomeSpec(MLPTopology(ds.topology))
-        dope = rng.integers(spec.low, spec.high, (SUITE_DOPE, spec.n_genes)).astype(np.int32)
-        out.append((ds, engine.Problem.from_data(MLPTopology(ds.topology), ds.x_train,
-                                                 ds.y_train, cfg, device=dev), dope))
+        base = paper_baseline(name, dev, baselines) if baselines is not None else None
+        out.append((ds, engine.Problem.from_data(
+            MLPTopology(ds.topology), ds.x_train, ds.y_train, cfg,
+            baseline_acc=None if base is None else base["bb"].accuracy, device=dev),
+            None if base is None else base["seeds"]))
     return out
 
 
@@ -789,7 +810,7 @@ def lane_kernel_checks(dev) -> dict:
     return dict(lanes, err=err, samp=samp)
 
 
-def batched_paths(dev) -> dict:
+def batched_paths(dev, baselines: dict) -> dict:
     """Phase 4b: the batched entry points, each path with the launch counts
     set to 0 just before it and read just after; every cell against its
     sequential ``GATrainer.run`` on the card, bit for bit."""
@@ -804,7 +825,7 @@ def batched_paths(dev) -> dict:
     launches, out = {}, {}
     # -- the paper's suite, 5 datasets x 3 seeds = 15 lanes, generation "auto"
     cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS)
-    items = suite_problems(dev, cfg)
+    items = suite_problems(dev, cfg, baselines)
     res, launches["suite"], wall = counted(lambda: sweep.run_suite(
         [p for _, p, _ in items], SUITE_SEEDS, doping_seeds=[dp for _, _, dp in items],
         names=list(SUITE_DATASETS)))
@@ -814,19 +835,23 @@ def batched_paths(dev) -> dict:
     for i in range(res.n_cells):
         ds, _, dope = items[res.dataset_of(i)]
         tr = GATrainer(MLPTopology(ds.topology), ds.x_train, ds.y_train,
-                       dataclasses.replace(cfg, seed=res.cell(i)["seed"]), doping_seeds=dope,
-                       device=dev)
+                       dataclasses.replace(cfg, seed=res.cell(i)["seed"]),
+                       baseline_acc=baselines[ds.name]["bb"].accuracy,
+                       doping_seeds=dope, device=dev)
         st, _ = tr.run()
         require_state(f"suite cell {res.cell(i)}", res.state_at(i), st,
                       pos=res.positions[res.dataset_of(i)])
         if (res.unique_evals(i), res.cache_hits(i)) != (tr.unique_evals, tr.cache_hits):
             raise AssertionError(f"suite cell {res.cell(i)}: unique_evals/cache_hits differ")
     seq = time.perf_counter() - t0
+    feasible = [int((res.state_at(i).viol <= 0).sum()) for i in range(res.n_cells)]
     print(f"[batch] run_suite {SUITE_DATASETS} x seeds {SUITE_SEEDS} = {res.n_cells} lanes, "
-          f"pop {SUITE_POP}, {SUITE_GENS} generations, generation auto, {SUITE_DOPE} doping "
-          f"genomes per dataset: {wall:.2f} s batched vs {seq:.2f} s for the {res.n_cells} "
-          f"sequential GATrainer runs; launches {launches['suite']}; every cell equals its "
-          f"unpadded sequential run (all fields, cache, unique_evals, cache_hits)")
+          f"pop {SUITE_POP}, {SUITE_GENS} generations, generation auto, doped with each "
+          f"dataset's {len(items[0][2])} calibrated genomes, bespoke baselines "
+          f"{[round(baselines[n]['bb'].accuracy, 4) for n in SUITE_DATASETS]}: {wall:.2f} s batched vs "
+          f"{seq:.2f} s for the {res.n_cells} sequential GATrainer runs; launches "
+          f"{launches['suite']}; feasible survivors per lane {feasible}; every cell equals "
+          f"its unpadded sequential run (all fields, cache, unique_evals, cache_hits)")
     out["suite"] = res
     # -- run_grid at pendigits width, generation backends ref and phases
     ds = load_dataset("pendigits")
@@ -869,14 +894,15 @@ def batched_paths(dev) -> dict:
     print(f"[batch] run_batch pendigits pop {GRID_POP}, seeds [0, 1], {GRID_GENS} generations, "
           f"variation_mode=mean K={K_DEV}, generation auto: {wall:.2f} s; launches "
           f"{launches['batch mc']}; each run equals its sequential run")
-    # -- across devices: a small suite on the card against the CPU
+    # -- across devices: a small doped suite on the card against the CPU
     small = engine.GAConfig(pop_size=16, generations=4)
     runs = {}
     for d in (dev, "cpu"):
         probs = [engine.Problem.from_data(MLPTopology(x.topology), x.x_train, x.y_train, small,
-                                          device=d)
+                                          baseline_acc=baselines[x.name]["bb"].accuracy, device=d)
                  for x in (load_dataset("breast_cancer"), load_dataset("redwine"))]
-        runs[str(d)] = sweep.run_suite(probs, [0, 1])
+        runs[str(d)] = sweep.run_suite(probs, [0, 1], doping_seeds=[
+            baselines[n]["seeds"] for n in ("breast_cancer", "redwine")])
     a, b = runs[str(dev)], runs["cpu"]
     for i in range(a.n_cells):     # auto: kernel path on the card, ref on the CPU
         require_state(f"small suite cell {i} card vs CPU", a.state_at(i), b.state_at(i),
@@ -884,8 +910,8 @@ def batched_paths(dev) -> dict:
     if not all(same(a.aux[k].cpu(), b.aux[k]) for k in (0, 1)) or not same(
             a.init_evals.cpu(), b.init_evals):
         raise AssertionError("small suite: best objectives or init evals differ card vs CPU")
-    print("[batch] run_suite breast_cancer + redwine, pop 16, 4 generations: card (kernels) "
-          "== CPU (plain paths), bit for bit")
+    print("[batch] run_suite breast_cancer + redwine, pop 16, 4 generations, doped, bespoke "
+          "baselines: card (kernels) == CPU (plain paths), bit for bit")
     # -- EvalCache hits on the card (generation "ref"), against the CPU
     bc = load_dataset("breast_cancer")
     hcfg = engine.GAConfig(pop_size=64, generations=20, mutation_rate_gene=0.005, seed=0,
@@ -902,6 +928,169 @@ def batched_paths(dev) -> dict:
           f"mutation 0.005, generation ref: cache_hits {hit['cpu'][1]}, unique_evals "
           f"{hit['cpu'][2]}, every field and the cache equal the CPU run")
     out["launches"] = launches
+    return out
+
+
+# -- the paper's pipeline ------------------------------------------------------
+
+# float training as benchmarks/common.py:_float_baseline runs it (800 steps,
+# 3 restarts, seed 0); the doped GA at the e2e phase's pendigits pop 256
+FLOAT_STEPS, FLOAT_RESTARTS, FLOAT_SEED = 800, 3, 0
+PIPE_POP, PIPE_GENS, MAX_LOSS = 256, GENERATIONS, 0.05
+# the card's float training against the CPU's from the same CPU-drawn
+# weights: float32 sums run in other orders on the two devices, so a sample
+# at the decision boundary may flip; 0.002 is 15 of pendigits' 7696 rows
+# (the port against the reference on the CPU: equal, tests/test_torch_baselines.py)
+TRAIN_ACC_TOL = 0.002
+
+
+def paper_baseline(name: str, dev, made: dict) -> dict:
+    """One dataset's float net, exact bespoke baseline and calibrated
+    doping genomes on the card (``benchmarks/common.py:_ga_setup``), made
+    once into ``made`` and shared by every phase that needs them."""
+    if name not in made:
+        import torch
+        from repro_torch.core import (GenomeSpec, MLPTopology, calibrated_seeds,
+                                      exact_bespoke_baseline, train_float_mlp)
+        from repro_torch.data import load_dataset
+
+        ds = load_dataset(name)
+        topo = MLPTopology(ds.topology)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fm = train_float_mlp(topo, ds.x_train, ds.y_train, ds.x_test, ds.y_test,
+                             steps=FLOAT_STEPS, restarts=FLOAT_RESTARTS, seed=FLOAT_SEED,
+                             device=dev)
+        train_s = time.perf_counter() - t0
+        bb = exact_bespoke_baseline(topo, fm, ds.x_test, ds.y_test, device=dev)
+        seeds = calibrated_seeds(GenomeSpec(topo), fm, ds.x_train, device=dev)
+        made[name] = dict(ds=ds, topo=topo, fm=fm, train_s=train_s, bb=bb, seeds=seeds)
+    return made[name]
+
+
+def paper_pipeline(dev, smi: str, baselines: dict) -> dict:
+    """Phase 4d: the paper's pipeline at pendigits (16, 5, 10) on the card
+    (``examples/quickstart.py``): float training, the exact bespoke
+    baseline, calibrated doping, the doped GA under generation auto and
+    phases, the design within 5 % loss, the post-training approximation,
+    Verilog. Each step is held against the CPU or against the card's other
+    path; the GA runs and the post-training loop are counted paths."""
+    import torch
+    from repro_torch.core import (GAConfig, GATrainer, GenomeSpec, HardwareCost,
+                                  best_within_loss, calibrated_seeds, emit_verilog,
+                                  evaluate_genome_python, exact_bespoke_baseline,
+                                  mlp_predict, post_training_approx, quantize_inputs,
+                                  train_float_mlp)
+    from repro_torch.kernels.backend import BackendPolicy
+    from repro_torch.kernels.pop_mlp import population_correct
+
+    base = paper_baseline("pendigits", dev, baselines)
+    ds, topo, fm, bb, seeds = (base[k] for k in ("ds", "topo", "fm", "bb", "seeds"))
+    spec = GenomeSpec(topo)
+    out = {"launches": {}}
+    # 1. float training, on the card and on the CPU from the same weights
+    t0 = time.perf_counter()
+    fm_cpu = train_float_mlp(topo, ds.x_train, ds.y_train, ds.x_test, ds.y_test,
+                             steps=FLOAT_STEPS, restarts=FLOAT_RESTARTS, seed=FLOAT_SEED,
+                             device="cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = abs(fm.train_acc - fm_cpu.train_acc)
+    if not gap <= TRAIN_ACC_TOL:
+        raise AssertionError(f"pipeline: float train accuracy card {fm.train_acc} vs CPU "
+                             f"{fm_cpu.train_acc} (tolerance {TRAIN_ACC_TOL})")
+    weight_gap = max(float(np.abs(a - b).max()) for a, b in zip(fm.weights, fm_cpu.weights))
+    print(f"[pipeline] pendigits {topo.sizes}: train_float_mlp {FLOAT_STEPS} steps x "
+          f"{FLOAT_RESTARTS} restarts on the card {base['train_s']:.2f} s wall (CPU "
+          f"{cpu_s:.2f} s); train accuracy {fm.train_acc:.6f} (CPU {fm_cpu.train_acc:.6f}, "
+          f"|gap| {gap:.6f} <= {TRAIN_ACC_TOL}), test accuracy {fm.test_acc:.6f} (CPU "
+          f"{fm_cpu.test_acc:.6f}); largest weight difference {weight_gap:.3g}; {smi}")
+    # 2. the exact bespoke baseline and the calibrated genomes, card vs CPU
+    bb_cpu = exact_bespoke_baseline(topo, fm, ds.x_test, ds.y_test, device="cpu")
+    if (bb.accuracy, bb.fa_count) != (bb_cpu.accuracy, bb_cpu.fa_count) or not all(
+            same(a, b) for a, b in zip(bb.weights_q + bb.biases_q,
+                                       bb_cpu.weights_q + bb_cpu.biases_q)):
+        raise AssertionError("pipeline: the bespoke baseline differs between card and CPU")
+    seeds_cpu = calibrated_seeds(spec, fm, ds.x_train, device="cpu")
+    if len(seeds) != len(seeds_cpu) or not all(same(a, b) for a, b in zip(seeds, seeds_cpu)):
+        raise AssertionError("pipeline: the calibrated genomes differ between card and CPU")
+    cost = HardwareCost.from_fa(bb.fa_count)
+    print(f"[pipeline] exact bespoke baseline: test accuracy {bb.accuracy:.6f}, "
+          f"{bb.fa_count} FA ({cost.area_cm2:.2f} cm2, {cost.power_mw:.2f} mW); "
+          f"{len(seeds)} calibrated genomes; both equal the CPU's bit for bit")
+    # 3. the doped GA, generation auto and phases
+    finals = {}
+    for backend in ("auto", "phases"):
+        cfg = GAConfig(pop_size=PIPE_POP, generations=PIPE_GENS, seed=0,
+                       backends=BackendPolicy(generation=backend))
+        tr = GATrainer(topo, ds.x_train, ds.y_train, cfg, baseline_acc=bb.accuracy,
+                       doping_seeds=seeds, device=dev)
+        (state, _), out["launches"][f"ga {backend}"], wall = counted(tr.run)
+        obj = state.obj.cpu().numpy()
+        pop = state.pop.cpu().numpy()
+        if not (np.isfinite(obj).all() and obj.shape == (PIPE_POP, 2)
+                and (pop >= spec.low).all() and (pop < spec.high).all()):
+            raise AssertionError(f"pipeline GA {backend}: objectives or genomes out of shape")
+        finals[backend] = (tr, state)
+        print(f"[pipeline] GATrainer pendigits pop {PIPE_POP} gens {PIPE_GENS}, baseline_acc "
+              f"{bb.accuracy:.6f}, doped, generation {backend}: {wall:.2f} s wall; "
+              f"feasible {int((state.viol <= 0).sum())}; launches "
+              f"{out['launches'][f'ga {backend}']}")
+    require_state("pipeline GA auto vs phases", finals["phases"][1], finals["auto"][1])
+    require_launches("pipeline GA auto", out["launches"]["ga auto"],
+                     {"pop_mlp_correct": 1, "pop_generation_kernel": PIPE_GENS})
+    require_launches("pipeline GA phases", out["launches"]["ga phases"],
+                     {"pop_mlp_correct": PIPE_GENS + 1, "pop_variation_kernel": PIPE_GENS})
+    # 4. the design within 5 % of the baseline (else the front's most accurate)
+    tr, state = finals["auto"]
+    front = tr.front(state)
+    idx = best_within_loss(front["objectives"], 1 - bb.accuracy, MAX_LOSS)
+    pick = idx if idx is not None else int(np.argmin(front["objectives"][:, 0]))
+    genome = front["genomes"][pick]
+    err, fa = (float(v) for v in front["objectives"][pick])
+    print(f"[pipeline] front of {len(front['objectives'])} points; "
+          + (f"best within {MAX_LOSS:.0%} loss: " if idx is not None else
+             f"none within {MAX_LOSS:.0%} loss of the baseline, the most accurate: ")
+          + f"train error {err:.6f}, {fa:.0f} FA ({bb.fa_count / max(fa, 1):.1f}x smaller)")
+    # 5. the post-training approximation, card vs CPU
+    pt, out["launches"]["post-training"], pt_s = counted(lambda: post_training_approx(
+        spec, fm, ds.x_train, ds.y_train, max_loss=MAX_LOSS, baseline_acc=bb.accuracy,
+        device=dev))
+    t0 = time.perf_counter()
+    pt_cpu = post_training_approx(spec, fm, ds.x_train, ds.y_train, max_loss=MAX_LOSS,
+                                  baseline_acc=bb.accuracy, device="cpu")
+    pt_cpu_s = time.perf_counter() - t0
+    if not (same(pt[0], pt_cpu[0]) and pt[1:] == pt_cpu[1:]):
+        raise AssertionError(f"pipeline: post_training_approx card {pt[1:]} vs CPU "
+                             f"{pt_cpu[1:]} (genome equal: {same(pt[0], pt_cpu[0])})")
+    k1 = out["launches"]["post-training"]
+    if set(k1) != {"pop_mlp_correct"}:
+        raise AssertionError(f"pipeline: post_training_approx launched {k1}")
+    out["post_training"] = dict(s=pt_s, cpu_s=pt_cpu_s, launches=k1["pop_mlp_correct"],
+                                acc=pt[1], fa=pt[2])
+    print(f"[pipeline] post_training_approx (max loss {MAX_LOSS}): train accuracy "
+          f"{pt[1]:.6f}, {pt[2]} FA; {pt_s:.3f} s wall on the card with "
+          f"{k1['pop_mlp_correct']} pop_mlp_correct launches ({pt_s / k1['pop_mlp_correct'] * 1e3:.3f} "
+          f"ms a trial, each a host read), {pt_cpu_s:.2f} s on the CPU; genome, accuracy "
+          f"and FA equal the CPU's; {smi}")
+    # 6. Verilog: the circuit's simulated predictions against the card's
+    verilog = emit_verilog(spec, genome, name="pendigits_mlp")
+    x = torch.as_tensor(np.asarray(ds.x_test, np.float32), device=dev)
+    y = torch.as_tensor(np.asarray(ds.y_test), device=dev).to(torch.int32)
+    x_int = quantize_inputs(x, topo.input_bits)
+    sim = evaluate_genome_python(spec, genome, x_int.cpu().numpy()).argmax(axis=-1)
+    g = torch.as_tensor(genome, device=dev)
+    pred = mlp_predict(spec, g, x).cpu().numpy()
+    if not np.array_equal(sim, pred):
+        raise AssertionError("pipeline: the circuit's predictions differ from mlp_predict's")
+    count, out["launches"]["verilog check"], _ = counted(
+        lambda: int(population_correct(g[None], x_int, y, spec=spec)[0]))
+    sim_count = int((sim == ds.y_test).sum())
+    if sim_count != count or out["launches"]["verilog check"] != {"pop_mlp_correct": 1}:
+        raise AssertionError(f"pipeline: the circuit counts {sim_count} correct, K1 {count}")
+    print(f"[pipeline] emit_verilog: {len(verilog.splitlines())} lines, {len(verilog)} bytes; "
+          f"evaluate_genome_python on the {len(sim)} test rows equals mlp_predict on the card, "
+          f"{sim_count} correct, equal to K1's count (test accuracy "
+          f"{sim_count / len(sim):.6f})")
     return out
 
 
@@ -1278,9 +1467,12 @@ def main() -> int:
         print(f"[e2e] breast_cancer pop 32 gens 3 variation_mode={mode}: card (kernels) == "
               f"CPU (plain paths), bit for bit")
 
-    # -- 4b. the batched entry points; 4c. the fallback chain's probe ----------
-    batched = batched_paths(dev)
+    # -- 4b. the batched entry points; 4c. the fallback chain's probe; 4d. the
+    # paper's pipeline ------------------------------------------------------------
+    baselines = {}      # each suite dataset's float net, bespoke baseline, doping
+    batched = batched_paths(dev, baselines)
     probe_launches = probe_phase()
+    pipeline = paper_pipeline(dev, smi, baselines)
 
     # -- 5. LM-side ops --------------------------------------------------------
     lm = lm_path(dev)
@@ -1385,7 +1577,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": s["source"],
                      "replaces": s["replaces"],
                      "launches": launches[mode][name] + sum(
-                         n.get(name, 0) for n in batched["launches"].values()),
+                         n.get(name, 0) for n in (*batched["launches"].values(),
+                                                  *pipeline["launches"].values())),
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the

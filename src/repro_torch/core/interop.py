@@ -1,5 +1,5 @@
-"""Carry GA state between the JAX reference and the port as numpy arrays —
-the port's counterpart of carrying weights across.
+"""Carry GA state and float MLP weights between the JAX reference and the
+port as numpy arrays.
 
 The leaves are those of ``repro.core.engine.GAState`` with the reference's
 dtypes: ``pop`` int32 (P, G), ``obj`` float32 (P, 2), ``viol`` float32
@@ -9,12 +9,18 @@ EvalCache, ``cache.rows`` int32 (C, G), ``cache.vals`` int32 (C,),
 ``cache.stamp`` int32 (C,) and ``cache.probes`` (an int). Under
 device-variation fitness ``obj`` is (P, 3), ``counts`` (P, K) and
 ``cache.vals`` (C, K); the shapes carry across as they are.
+
+A float MLP carries as two lists of float32 arrays, ``weights``
+((fan_in, fan_out) each) and ``biases`` ((fan_out,) each): the reference
+``FloatMLP``'s fields, or its ``_init_params`` pytree (``p["w"]``,
+``p["b"]`` per layer) as numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .baselines import FloatMLP, FloatNet
 from .dedup import EvalCache
 from .engine import GAState
 from .genome import GeneTable
@@ -58,3 +64,25 @@ def state_to_numpy(state: GAState) -> dict:
             out[f"cache.{n}"] = getattr(state.cache, n).cpu().numpy().astype(np.int32)
         out["cache.probes"] = state.cache.probes
     return out
+
+
+def float_mlp_from_numpy(weights, biases, train_acc: float = float("nan"),
+                         test_acc: float = float("nan")) -> FloatMLP:
+    """The port's FloatMLP from float weight and bias arrays (float32 copies)."""
+    f32 = lambda ps: [np.array(p, np.float32) for p in ps]
+    return FloatMLP(f32(weights), f32(biases), float(train_acc), float(test_acc))
+
+
+def float_net_from_numpy(weights, biases, device="cpu") -> FloatNet:
+    """A FloatNet on ``device`` holding float32 copies of the arrays."""
+    return FloatNet.from_numpy(weights, biases, device)
+
+
+def float_mlp_to_numpy(model) -> tuple[list, list]:
+    """(weights, biases) float32 numpy lists of a FloatMLP or a FloatNet —
+    the inverse of :func:`float_mlp_from_numpy` and
+    :func:`float_net_from_numpy`."""
+    if isinstance(model, FloatNet):
+        model = model.to_float_mlp(float("nan"), float("nan"))
+    return ([np.array(w, np.float32) for w in model.weights],
+            [np.array(b, np.float32) for b in model.biases])

@@ -6,13 +6,18 @@ PyTorch counterpart of ``repro.core.mlp``. All arithmetic is int32 and
 wraps like XLA's: sums take ``dtype=torch.int32`` (torch would widen them
 to int64), and torch's shifts give 0 (left) or the sign fill (right) for
 amounts outside [0, 31], as XLA's do. Argmax returns the first maximum.
+
+:func:`accuracy` scores one chromosome through the population fitness
+dispatcher (the CUDA kernel ``pop_mlp_correct`` on a card);
+:func:`fixed_point_forward` is the exact bespoke baseline's integer
+inference (8-bit fixed-point weights, Table I).
 """
 from __future__ import annotations
 
 import torch
 
 from .genome import GenomeSpec, apply_device_deltas
-from .quantize import qrelu
+from .quantize import qrelu, quantize_inputs
 
 INT32_MIN = -2**31
 
@@ -63,15 +68,40 @@ def mlp_forward(spec: GenomeSpec, genome: torch.Tensor,
     return h
 
 
+def count_mean(counts: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 mean of a 0/1 vector of length ``n`` from its int count.
+
+    The reference's ``jnp.mean`` of a float32 0/1 vector compiles, eagerly
+    and under jit, to the exact sum times float32 ``1/n``, rounded once;
+    ``float32(count) / float32(n)`` differs in the last place for some
+    counts (tests/test_torch_baselines.py sweeps every count)."""
+    inv = torch.tensor(1.0 / n, dtype=torch.float32, device=counts.device)
+    return counts.to(torch.float32) * inv
+
+
+def mlp_predict(spec: GenomeSpec, genome: torch.Tensor, x01: torch.Tensor) -> torch.Tensor:
+    """Float [0,1] features (S, n_in) → (S,) class predictions."""
+    x_int = quantize_inputs(x01, spec.topo.input_bits)
+    return torch.argmax(mlp_forward(spec, genome, x_int), dim=-1)
+
+
+def accuracy(spec: GenomeSpec, genome: torch.Tensor, x01, labels) -> torch.Tensor:
+    """() float32 accuracy of one chromosome on float [0,1] features: its
+    correct count from the fitness dispatcher on a population of one (the
+    kernel on a CUDA tensor, the plain path on a CPU one), then
+    :func:`count_mean`."""
+    from ..kernels.pop_mlp import population_correct  # lazy: kernels import core
+
+    x_int = quantize_inputs(x01, spec.topo.input_bits)
+    counts = population_correct(genome[None].contiguous(), x_int, labels, spec=spec)
+    return count_mean(counts[0], labels.shape[-1])
+
+
 def population_accuracy(spec: GenomeSpec, pop: torch.Tensor, x_int, labels,
                         out_mask=None) -> torch.Tensor:
-    """(P, n_genes) × (S, n_in) → (P,) float32 accuracy (the untiled oracle).
-
-    The reference's ``jnp.mean`` compiles under jit to the 0/1 sum times
-    float32 ``1/S``, rounded once (not ``sum / S``); so is this."""
+    """(P, n_genes) × (S, n_in) → (P,) float32 accuracy (the untiled oracle)."""
     counts = population_correct_counts(spec, pop, x_int, labels, out_mask)
-    inv = torch.tensor(1.0 / labels.shape[-1], dtype=torch.float32, device=counts.device)
-    return (counts.to(torch.float64) * inv.to(torch.float64)).to(torch.float32)
+    return count_mean(counts, labels.shape[-1])
 
 
 def population_correct_counts(spec: GenomeSpec, pop: torch.Tensor, x_int,
@@ -112,3 +142,29 @@ def population_correct_counts_mc(spec: GenomeSpec, pop: torch.Tensor, dev,
         pred = torch.argmax(mask_logits(h, out_mask), dim=-1)
         counts.append((pred == labels).sum(dim=-1, dtype=torch.int32))
     return torch.stack(counts, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Exact fixed-point baseline inference (Table I semantics: 8-bit weights,
+# 4-bit inputs, integer multipliers): the baseline accuracy.
+# ---------------------------------------------------------------------------
+
+def fixed_point_forward(weights_q, biases_q, x_int, act_bits: int = 8,
+                        frac_bits: int = 7) -> torch.Tensor:
+    """weights_q: int32 (fan_in, fan_out) tensors in Q1.(frac_bits) format;
+    x_int (S, n_in) int32 → (S, n_out) int32 accumulators.
+
+    The products are an integer broadcast-multiply-sum: CUDA has no int32
+    matmul, and a float32 one would be exact only with TF32 off. The sums
+    are exact (|acc| ≤ 255·255·fan_in < 2^24), and ``>>`` on int32 is an
+    arithmetic shift, as the reference's."""
+    h = x_int
+    n = len(weights_q)
+    for l, (w, b) in enumerate(zip(weights_q, biases_q)):
+        acc = ((h.to(torch.int32)[..., :, None] * w.to(torch.int32)).sum(
+            dim=-2, dtype=torch.int32) + b.to(torch.int32))
+        if l < n - 1:
+            h = torch.clamp(acc >> frac_bits, 0, 2**act_bits - 1)
+        else:
+            h = acc
+    return h
