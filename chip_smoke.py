@@ -61,6 +61,20 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    ``mlp_predict`` on the card and whose correct count equals K1's. The
    suite of 4b runs on each dataset's calibrated genomes and bespoke
    baseline, from one float net per dataset made here;
+4e. the islands (``core.islands`` on a one-card ``DeviceMesh``), each path
+   with the launch counts set to 0 just before it and read just after: one
+   island at pendigits pop 256 (20 generations in one round) equals
+   ``GATrainer.run`` on the card, every carry leaf; 16 islands x 64 rows at
+   pendigits (3 rounds x 10 generations, 4 migrants) under generation auto
+   and phases give bit-identical final carries, launching K3, or K2 and
+   K1, once a generation for all islands; the small breast_cancer rings of
+   ``tests/test_torch_islands.py`` (4 islands with dedup off and on and
+   under ``variation_mode="mean"``, and 2 x 2) on the card equal the CPU's
+   after init and after every round, every carry leaf but the EvalCache
+   (which generation auto's kernel path carries through and the CPU's
+   "ref" updates), launching K1 and K3 or K4 and K3 ``n_dev``;
+   ``[islands]`` lines give the wall time per round and per generation,
+   one batched generation's ranking share and the ring's migration time;
 5. LM-side ops, the third path, with the launch counts set to 0 just
    before it and read just after — ``state_scan`` at mamba2-130m width,
    ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
@@ -1094,6 +1108,206 @@ def paper_pipeline(dev, smi: str, baselines: dict) -> dict:
     return out
 
 
+# -- the islands ---------------------------------------------------------------
+
+# the island path at the e2e phase's pendigits width: 16 islands of 64 rows
+# (IslandConfig's island_pop), migrate_every 10 and n_migrants 4 (its
+# defaults), 3 of its 10 rounds
+ISLANDS, ISLAND_POP, ISLAND_EVERY, ISLAND_MIGRANTS, ISLAND_ROUNDS = 16, 64, 10, 4, 3
+CARRY = ("pop", "obj", "viol", "counts", "rank", "crowd", "key",
+         "cache.rows", "cache.vals", "cache.stamp")
+# the small breast_cancer rings tests/test_torch_islands.py holds against the
+# reference's shard_map islands: island_pop 16, migrate_every 3, n_migrants
+# 2, 3 rounds
+SMALL_RING = dict(island_pop=16, migrate_every=3, n_migrants=2, rounds=3)
+SMALL_RINGS = {
+    "data4_dedup_off": dict(mesh=(4,), axes=("data",), ga=dict(dedup=False), seed=3,
+                            baseline=1.0, dope=False),
+    "data4_dedup_on": dict(mesh=(4,), axes=("data",), ga=dict(dedup=True), seed=3,
+                           baseline=1.0, dope=False),
+    "data4_mean": dict(mesh=(4,), axes=("data",),
+                       ga=dict(variation_mode="mean", n_device_samples=3), seed=5,
+                       baseline=0.9, dope=False),
+    "pod2_data2": dict(mesh=(2, 2), axes=("pod", "data"), ga=dict(), seed=7,
+                       baseline=0.9, dope=True),
+}
+
+
+def island_rounds(ds, icfg, mesh, axes, baseline, seed, dope=None, timed=False):
+    """``build_island_step`` on ``mesh``: the carry after init and after
+    each round (on the mesh's device), and each round's wall seconds."""
+    import torch
+    from repro_torch.core import GenomeSpec, MLPTopology, build_island_step, quantize_inputs
+
+    topo = MLPTopology(ds.topology)
+    x = torch.as_tensor(ds.x_train, dtype=torch.float32, device=mesh.device)
+    init, round_fn = build_island_step(GenomeSpec(topo), icfg, mesh,
+                                       quantize_inputs(x, topo.input_bits), ds.y_train,
+                                       baseline, axes)
+    carries, walls = [init(seed, dope)], []
+    for _ in range(icfg.rounds):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carries.append(round_fn(*carries[-1]))
+        if timed:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return carries, walls
+
+
+def require_carry(what: str, got, want):
+    """Every leaf of two island carries equal, bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} carry leaves against {len(want)}")
+    for name, a, b in zip(CARRY, got, want):
+        if not same(a.cpu().numpy(), b.cpu().numpy()):
+            raise AssertionError(f"{what}: carry leaf {name} differs")
+
+
+def island_paths(dev, smi: str) -> dict:
+    """Phase 4e: island-parallel NSGA-II on a one-card mesh, each path with
+    the launch counts set to 0 just before it and read just after: one
+    island equals ``GATrainer.run``; 16 islands at pendigits width under
+    generation auto and phases, bit-identical, each kernel launched once
+    per generation for all islands; the small breast_cancer rings on the
+    card equal the CPU's every round; the wall time per round and per
+    generation and the ranking's share."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (GAConfig, GATrainer, GenomeSpec, IslandConfig,
+                                  MLPTopology, build_island_step, quantize_inputs)
+    from repro_torch.core.interop import state_to_numpy
+    from repro_torch.data import load_dataset
+    from repro_torch.kernels.backend import BackendPolicy
+    from repro_torch.kernels.pop_generation import ref as gen_ref
+    from repro_torch.launch import make_mesh
+
+    launches = {}
+    ds = load_dataset("pendigits")
+    topo = MLPTopology(ds.topology)
+    # (i) one island is a GATrainer run: pop 256, 20 generations in 1 round
+    cfg = GAConfig(pop_size=256, generations=GENERATIONS, seed=0)
+    one = make_mesh((1,), ("data",), device=dev)
+    icfg = IslandConfig(ga=cfg, island_pop=256, migrate_every=GENERATIONS, n_migrants=4,
+                        rounds=1)
+    (carries, _), launches["one island"], wall = counted(
+        lambda: island_rounds(ds, icfg, one, ("data",), 1.0, cfg.seed))
+    require_launches("one island", launches["one island"],
+                     {"pop_mlp_correct": 1, "pop_generation_kernel": GENERATIONS})
+    tr = GATrainer(topo, ds.x_train, ds.y_train, cfg, device=dev)
+    want = state_to_numpy(tr.run()[0])
+    for name, leaf in zip(CARRY, carries[-1]):
+        leaf = leaf[0] if name == "key" else leaf       # the one island's key
+        if not same(leaf.cpu().numpy().astype(want[name].dtype), want[name]):
+            raise AssertionError(f"one island vs GATrainer.run: {name} differs")
+    print(f"[islands] pendigits 1 island x pop 256, {GENERATIONS} generations in 1 round, "
+          f"generation auto: {wall:.2f} s; launches {launches['one island']}; every carry "
+          f"leaf (cache included) equals GATrainer.run's final state")
+
+    # (ii) 16 islands at pendigits width, generation auto and phases
+    mesh = make_mesh((ISLANDS,), ("data",), device=dev)
+    gens = ISLAND_ROUNDS * ISLAND_EVERY
+    finals = {}
+    for backend, want_launches in (
+            ("auto", {"pop_mlp_correct": 1, "pop_generation_kernel": gens}),
+            ("phases", {"pop_mlp_correct": gens + 1, "pop_variation_kernel": gens})):
+        icfg = IslandConfig(ga=GAConfig(seed=0, backends=BackendPolicy(generation=backend)),
+                            island_pop=ISLAND_POP, migrate_every=ISLAND_EVERY,
+                            n_migrants=ISLAND_MIGRANTS, rounds=ISLAND_ROUNDS)
+        (carries, walls), launches[f"islands {backend}"], wall = counted(
+            lambda icfg=icfg: island_rounds(ds, icfg, mesh, ("data",), 1.0, 0, timed=True))
+        require_launches(f"islands {backend}", launches[f"islands {backend}"], want_launches)
+        finals[backend] = carries[-1]
+        pop, obj = carries[-1][0].cpu().numpy(), carries[-1][1].cpu().numpy()
+        spec = GenomeSpec(topo)
+        if not (np.isfinite(obj).all() and obj.shape == (ISLANDS * ISLAND_POP, 2)
+                and ((pop >= spec.low) & (pop < spec.high)).all()):
+            raise AssertionError(f"islands {backend}: objectives or genomes out of shape")
+        print(f"[islands] pendigits {ISLANDS} islands x pop {ISLAND_POP}, {ISLAND_ROUNDS} "
+              f"rounds x {ISLAND_EVERY} generations, {ISLAND_MIGRANTS} migrants, generation "
+              f"{backend}: {wall:.2f} s with init; rounds "
+              f"{[round(w, 3) for w in walls]} s, {sum(walls) / gens * 1e3:.2f} ms per "
+              f"generation; launches {launches[f'islands {backend}']}; {smi}")
+    require_carry("islands auto vs phases", finals["phases"], finals["auto"])
+    # from the final carry, through round_fn: a round of one generation, and a
+    # round of none (the ring's migration and re-rank, with the carry's
+    # repacking); the generation's ranking is the 16 lanes' rank_select_rerank
+    # on the pools that generation ranked (parents plus children), captured
+    # in an untimed call; host clock between CUDA events
+    xq = quantize_inputs(torch.as_tensor(ds.x_train, dtype=torch.float32, device=dev),
+                         topo.input_bits)
+    step = {every: build_island_step(
+        GenomeSpec(topo), IslandConfig(ga=GAConfig(seed=0, backends=BackendPolicy(
+            generation="auto")), island_pop=ISLAND_POP, migrate_every=every,
+            n_migrants=ISLAND_MIGRANTS, rounds=1), mesh, xq, ds.y_train, 1.0)[1]
+        for every in (1, 0)}
+    pools, rank_pool = [], gen_ref.rank_select_rerank
+
+    def capture(obj, viol, mu, **kw):
+        pools.append((obj, viol, mu, kw))
+        return rank_pool(obj, viol, mu, **kw)
+
+    gen_ref.rank_select_rerank = capture
+    try:
+        step[1](*finals["auto"])
+    finally:
+        gen_ref.rank_select_rerank = rank_pool
+    if len(pools) != ISLANDS or any(o.shape[0] != 2 * ISLAND_POP for o, *_ in pools):
+        raise AssertionError(f"islands: the generation ranked {len(pools)} pools, not "
+                             f"{ISLANDS} of {2 * ISLAND_POP} rows")
+    round_ms = time_ms(lambda: step[1](*finals["auto"]), reps=3, warmup=1)
+    migrate_ms = time_ms(lambda: step[0](*finals["auto"]), reps=3, warmup=1)
+    rank_ms = time_ms(lambda: [rank_pool(o, v, mu, **kw) for o, v, mu, kw in pools],
+                      reps=3, warmup=1)
+    gen_ms = round_ms - migrate_ms
+    print(f"[islands] a round of one generation of the {ISLANDS} islands (generation "
+          f"auto): {round_ms:.2f} ms; a round of none (the ring's migration and re-rank): "
+          f"{migrate_ms:.2f} ms; so one batched generation {gen_ms:.2f} ms, of which the "
+          f"{ISLANDS} lanes' rank_select_rerank on that generation's pools of "
+          f"{2 * ISLAND_POP} rows (parents plus children) {rank_ms:.2f} ms "
+          f"({rank_ms / gen_ms:.0%}); {smi}")
+
+    # (iii) the small breast_cancer rings on the card against the CPU, every
+    # round: K1/K3 nominal, K4/K3 n_dev under variation_mode="mean"
+    bc = load_dataset("breast_cancer")
+    bspec = GenomeSpec(MLPTopology(bc.topology))
+    dope = np.stack([np.asarray(bspec.high) - 1, np.asarray(bspec.low)]).astype(np.int32)
+    for name, c in SMALL_RINGS.items():
+        icfg = IslandConfig(ga=GAConfig(**c["ga"]), **SMALL_RING)
+        runs = {}
+        for d in (dev, "cpu"):
+            mesh = make_mesh(c["mesh"], c["axes"], device=d)
+
+            def run(icfg=icfg, mesh=mesh, c=c):
+                return island_rounds(bc, icfg, mesh, c["axes"], c["baseline"], c["seed"],
+                                     dope if c["dope"] else None)
+
+            if d == dev:
+                (runs[d], _), launches[f"ring {name}"], _ = counted(run)
+            else:
+                runs[d], _ = run()
+        gens = SMALL_RING["rounds"] * SMALL_RING["migrate_every"]
+        want = ({"pop_mlp_correct_mc": 1, "pop_generation_kernel_mc": gens}
+                if c["ga"].get("variation_mode") else
+                {"pop_mlp_correct": 1, "pop_generation_kernel": gens})
+        require_launches(f"ring {name}", launches[f"ring {name}"], want)
+        # generation auto is the kernel path on the card, which carries the
+        # EvalCache through as init left it, and "ref" on the CPU, which
+        # updates it: every other leaf must agree
+        for r, (a, b) in enumerate(zip(runs[dev], runs["cpu"])):
+            require_carry(f"ring {name} round {r} card vs CPU", a[:7], b[:7])
+        print(f"[islands] breast_cancer ring {name} (mesh {c['mesh']} {c['axes']}, "
+              f"{c['ga']}): card (kernels) == CPU (plain paths) after init and each of "
+              f"{SMALL_RING['rounds']} rounds, every carry leaf but the EvalCache; launches "
+              f"{launches[f'ring {name}']}")
+    union = {k for got in launches.values() for k, v in got.items() if v}
+    missing = set(GA_KERNELS) - union
+    if missing:
+        raise AssertionError(f"islands: kernels never launched on the path: {missing}")
+    return launches
+
+
 def probe_phase() -> dict:
     """Phase 4c: the fallback chain's probe on the card. With the memo and
     the launch counts reset, ``resolve_backends(..., fallback=True)`` must
@@ -1468,11 +1682,12 @@ def main() -> int:
               f"CPU (plain paths), bit for bit")
 
     # -- 4b. the batched entry points; 4c. the fallback chain's probe; 4d. the
-    # paper's pipeline ------------------------------------------------------------
+    # paper's pipeline; 4e. the islands --------------------------------------------
     baselines = {}      # each suite dataset's float net, bespoke baseline, doping
     batched = batched_paths(dev, baselines)
     probe_launches = probe_phase()
     pipeline = paper_pipeline(dev, smi, baselines)
+    isl = island_paths(dev, smi)          # launches per counted path
 
     # -- 5. LM-side ops --------------------------------------------------------
     lm = lm_path(dev)
@@ -1578,7 +1793,8 @@ def main() -> int:
                      "replaces": s["replaces"],
                      "launches": launches[mode][name] + sum(
                          n.get(name, 0) for n in (*batched["launches"].values(),
-                                                  *pipeline["launches"].values())),
+                                                  *pipeline["launches"].values(),
+                                                  *isl.values())),
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the

@@ -7,6 +7,7 @@ from .genome import MLPTopology, GenomeSpec, GeneTable, max_topology
 from .engine import GAConfig, GAState, Problem, pad_problem
 from .trainer import GATrainer
 from .sweep import SweepResult, SuiteResult, run_grid, grid_cells, run_suite
+from .islands import IslandConfig, build_island_step, run_islands
 from .area import (mlp_fa_count, population_area, baseline_mlp_fa,
                    HardwareCost, EGFET_FA_AREA_CM2, EGFET_FA_POWER_MW)
 from .mlp import mlp_forward, mlp_predict, accuracy, population_accuracy

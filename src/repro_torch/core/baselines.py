@@ -30,10 +30,10 @@ import numpy as np
 import torch
 
 from .area import baseline_mlp_fa, mlp_fa_count
-from .engine import device_of
 from .genome import GenomeSpec, MLPTopology
 from .mlp import accuracy, count_mean, fixed_point_forward
 from .quantize import fixed_point_quantize, quantize_inputs
+from ..device import device_of
 
 
 @dataclasses.dataclass

@@ -34,6 +34,7 @@ from .genome import (SLOT_DEVICE, GeneTable, GenomeSpec, MLPTopology,
 from .mlp import population_correct_counts
 from .pareto import pareto_front
 from .quantize import quantize_inputs
+from ..device import device_of, not_ported
 from ..kernels.backend import BackendPolicy
 
 NO_BUDGET = np.int32(2**31 - 1)
@@ -43,11 +44,6 @@ _LEGACY_BACKEND_FIELDS = (("fitness", "fitness_backend"),
                           ("variation", "variation_backend"),
                           ("generation", "generation_backend"),
                           ("ranking", "ranking_backend"))
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not in the PyTorch port yet "
-                               f"(ROADMAP {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +110,7 @@ class GAConfig:
                 "backend (auto/kernel/ref): the 'jnp' oracle has no "
                 "device-instance axis")
         if self.generations_budget is not None:
-            raise _not_ported("per-lane generation budgets", "A12")
+            raise not_ported("per-lane generation budgets", "A12")
         if self.batch_axis not in (None, BATCH_AXIS):
             raise ValueError(f"GAConfig.batch_axis must be None or {BATCH_AXIS!r}, "
                              f"the port's one lane axis; got {self.batch_axis!r}")
@@ -142,17 +138,6 @@ class GAState:
     key: torch.Tensor        # (2,) int64 uint32 key words
     gen: torch.Tensor        # () int32
     cache: EvalCache | None = None
-
-
-def device_of(device) -> torch.device:
-    """An entry point's device; a CUDA request without a card raises (the
-    port never carries on on the CPU unless asked to)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch: CUDA device requested but "
-                           "torch.cuda.is_available() is False; pass "
-                           "device='cpu' to run the plain PyTorch paths")
-    return dev
 
 
 def _f32(v, device) -> torch.Tensor:

@@ -14,9 +14,14 @@ seed and hyperparameters, on its unpadded dataset, ``unique_evals`` and
 ``cache_hits`` included: the lanes share one dedup evaluation bound per
 generation and gather only their own rows.
 
-The reference's ``mesh``/``axis_names`` (``shard_map`` over devices) are
-not ported: more than one device comes with the islands (ROADMAP A13). Its
-``jit`` argument steers XLA only and is not taken.
+``mesh=`` takes a :class:`~repro_torch.launch.mesh.DeviceMesh`. The
+reference's ``shard_map`` pads the cells to a multiple of the mesh's
+entries along ``axis_names`` and gives each entry a slice; a DeviceMesh's
+entries all live on one device, so every cell runs in the one batched run
+of lanes, bit-identical to the run without ``mesh`` (as the reference's
+sharded runs are to its unsharded ones). Any other mesh spans devices and
+raises (ROADMAP A13b). The reference's ``jit`` argument steers XLA only and
+is not taken.
 """
 from __future__ import annotations
 
@@ -27,8 +32,8 @@ import torch
 
 from . import engine, prng
 from . import genome as genome_mod
-from .engine import (GAState, Problem, _not_ported, pad_problem, batch_problem,
-                     stack_problems)
+from .engine import GAState, Problem, pad_problem, batch_problem, stack_problems
+from ..launch import mesh as mesh_mod
 
 __all__ = ["grid_cells", "run_grid", "SweepResult", "suite_spec", "pad_lane",
            "stack_problems", "doped_lane_rows", "run_suite", "SuiteResult"]
@@ -85,9 +90,15 @@ def _run_lanes(problems: list, seeds, doping, generations: int):
     return states, aux, n0
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise _not_ported("sharding cells over a device mesh (mesh=)", "A13")
+def _check_mesh(mesh, device, axis_names):
+    """``mesh=`` must be a DeviceMesh on the problems' device whose axes
+    include ``axis_names`` (entries on distinct devices are ROADMAP A13b)."""
+    if mesh is None:
+        return
+    mesh = mesh_mod.as_device_mesh(mesh)
+    if mesh.device != device:
+        raise ValueError(f"the mesh lives on {mesh.device}, the problems on {device}")
+    mesh.entries(axis_names)
 
 
 @dataclasses.dataclass
@@ -156,7 +167,7 @@ def run_grid(problem: Problem, seeds, *, crossover_rates=None,
     Every cell is bit-identical to a sequential ``GATrainer.run`` whose
     ``GAConfig`` carries that cell's hyperparameters and seed (and whose
     ``baseline_acc`` argument carries the cell's baseline)."""
-    _refuse_mesh(mesh)
+    _check_mesh(mesh, problem.device, axis_names)
     cells = grid_cells(seeds, crossover_rates, mutation_rates, max_acc_losses,
                        baseline_accs, problem=problem)
     gens = problem.cfg.generations if generations is None else generations
@@ -299,10 +310,10 @@ def run_suite(problems, seeds, *, crossover_rates=None, mutation_rates=None,
 
     Every cell is bit-identical to the sequential unpadded ``GATrainer.run``
     on its dataset with the cell's seed and hyperparameters."""
-    _refuse_mesh(mesh)
     problems = list(problems)
     if not problems:
         raise ValueError("run_suite needs at least one problem")
+    _check_mesh(mesh, problems[0].device, axis_names)
     cfg0 = problems[0].cfg
     for p in problems[1:]:
         if p.cfg != cfg0:
