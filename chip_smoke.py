@@ -75,6 +75,24 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    "ref" updates), launching K1 and K3 or K4 and K3 ``n_dev``;
    ``[islands]`` lines give the wall time per round and per generation,
    one batched generation's ranking share and the ring's migration time;
+4f. the search server (``repro_torch.serve.SearchServer``), each stream a
+   path with the launch counts set to 0 just before it and read just
+   after: the suite as a stream of 8 jobs (the five datasets, and
+   pendigits seeds 1 and 2 and cardio seed 1; budgets 5 to 20, each doped
+   with its calibrated genomes against its bespoke baseline) on 4 lanes in
+   segments of 5, longest budget first, under generation auto and phases:
+   every retired job equals its standalone ``GATrainer.run`` on the card
+   (every field, ``unique_evals``, ``cache_hits``), K1 launches once per
+   admission and K3 (or K2 and K1) once per generation with an active
+   lane, and K3's lanes summed over its launches equal the jobs' budgets
+   (a retired or empty lane is in no launch); a 2-lane device-variation
+   stream (breast_cancer and redwine, K = 8) launches K4 and K3 ``n_dev``
+   the same way and equals its trainers; ``validate_state`` holds on every
+   busy lane at every boundary, a NaN written into one lane flags
+   ``finite_objectives`` there alone and ``quarantine_lane`` frees it;
+   ``[serve]`` lines give the wall time per segment, the generations per
+   second summed over the lanes and the makespan, beside a 4-lane batched
+   generation of ``run_suite``'s kind;
 5. LM-side ops, the third path, with the launch counts set to 0 just
    before it and read just after — ``state_scan`` at mamba2-130m width,
    ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
@@ -1308,6 +1326,229 @@ def island_paths(dev, smi: str) -> dict:
     return launches
 
 
+# -- the search server -----------------------------------------------------------
+
+# the paper's suite as a stream of jobs: each dataset once and three more
+# seeds of the two largest (pendigits, cardio), budgets 5 to 20 generations,
+# served on 4 lanes in segments of 5 generations, longest budget first; the
+# last two segments run 2 and then 1 of the 4 lanes, so the stream shows
+# empty lanes left out of K3's launches
+SERVE_LANES, SERVE_SEGMENT, SERVE_POLICY = 4, 5, "longest"
+SERVE_JOBS = (("breast_cancer", 0, 20), ("cardio", 0, 20), ("pendigits", 0, 20),
+              ("redwine", 0, 5), ("whitewine", 0, 20), ("pendigits", 1, 10),
+              ("pendigits", 2, 5), ("cardio", 1, 15))
+# the device-variation stream: 2 lanes at breast_cancer and redwine
+SERVE_MC_JOBS = (("breast_cancer", 0, 10), ("redwine", 0, 5), ("redwine", 1, 10))
+
+
+def generations_with_work(results, segment_len: int) -> int:
+    """The generations of a stream in which some lane was active: a job
+    admitted at segment a with budget b is active in generations
+    [a * segment_len, a * segment_len + b) of the stream."""
+    busy = set()
+    for r in results:
+        start = r.admitted_segment * segment_len
+        busy.update(range(start, start + r.generations))
+    return len(busy)
+
+
+def serve_stream(srv, problems: dict, jobs, validate: bool = False):
+    """Submit ``jobs`` ((dataset, seed, budget)) to ``srv`` and step until it
+    drains; → (results by job id, the jobs by id, each step's wall seconds,
+    the lanes of every K3 launch). With ``validate`` every busy lane must
+    pass ``engine.validate_state`` at every segment boundary (untimed)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels.pop_generation import ops as gen_ops
+    from repro_torch.serve import SearchJob
+
+    by_id = {}
+    for name, seed, budget in jobs:
+        _, prob, dope = problems[name]
+        by_id[srv.submit(SearchJob(prob, budget, seed=seed, doping_seeds=dope,
+                                   name=f"{name}/{seed}"))] = (name, seed, budget)
+    k3_lanes, launch_k3 = [], gen_ops.pop_generation_kernel
+
+    def k3(a_rows, *args, **kw):
+        k3_lanes.append(a_rows.shape[0] if a_rows.dim() == 3 else 1)
+        return launch_k3(a_rows, *args, **kw)
+
+    results, walls = {}, []
+    gen_ops.pop_generation_kernel = k3
+    try:
+        while srv.has_work:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = srv.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            results.update((r.job_id, r) for r in done)
+            for lane in srv.active_jobs if validate else ():
+                flags = engine.validate_state(srv.lane_problem(lane), srv.lane_state(lane))
+                if not bool(flags.all()):
+                    raise AssertionError(f"serve: lane {lane} fails validate_state "
+                                         f"{flags.tolist()} at segment {srv.segments_done}")
+    finally:
+        gen_ops.pop_generation_kernel = launch_k3
+    return results, by_id, walls, k3_lanes
+
+
+def require_trainer_parity(what: str, results: dict, by_id: dict, problems: dict, cfg, dev,
+                           baselines: dict):
+    """Every retired job equals its standalone ``GATrainer.run`` on the card:
+    every state field, ``unique_evals`` and ``cache_hits``."""
+    import dataclasses
+
+    from repro_torch.core import GATrainer, MLPTopology
+
+    for jid, r in results.items():
+        name, seed, budget = by_id[jid]
+        ds, _, dope = problems[name]
+        tr = GATrainer(MLPTopology(ds.topology), ds.x_train, ds.y_train,
+                       dataclasses.replace(cfg, seed=seed, generations=budget),
+                       baseline_acc=baselines[name]["bb"].accuracy, doping_seeds=dope,
+                       device=dev)
+        st, _ = tr.run()
+        require_state(f"{what} job {name}/{seed}", r.state, st, fields=FIELDS)
+        if not (r.ok and r.generations_run == budget
+                and (r.unique_evals, r.cache_hits) == (tr.unique_evals, tr.cache_hits)):
+            raise AssertionError(f"{what} job {name}/{seed}: ok {r.ok}, generations_run "
+                                 f"{r.generations_run}, unique_evals/cache_hits "
+                                 f"{(r.unique_evals, r.cache_hits)} vs the trainer's "
+                                 f"{(tr.unique_evals, tr.cache_hits)}")
+
+
+def serve_paths(dev, smi: str, baselines: dict) -> dict:
+    """Phase 4f: the continuous-batching ``SearchServer``, each stream a path
+    with the launch counts set to 0 just before it and read just after:
+    (i) the suite stream under generation auto and phases, every retired
+    job equal to its standalone ``GATrainer.run`` on the card, K1 once per
+    admission and K3 (or K2 and K1) once per generation with an active
+    lane, K3's lanes summed over its launches equal to the jobs' budgets;
+    (ii) the device-variation stream (K4, K3 ``n_dev``); (iii)
+    ``validate_state`` on every busy lane at every boundary, a poisoned
+    lane flagged alone and quarantined; (iv) the ``[serve]`` times."""
+    import torch
+    from repro_torch.core import engine, prng, sweep
+    from repro_torch.kernels.backend import BackendPolicy
+    from repro_torch.serve import SearchServer
+
+    launches, out = {}, {}
+    budget_sum = sum(b for _, _, b in SERVE_JOBS)
+    for backend in ("auto", "phases"):
+        cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS,
+                              backends=BackendPolicy(generation=backend))
+        problems = {ds.name: (ds, p, dope) for ds, p, dope in suite_problems(dev, cfg, baselines)}
+        srv = SearchServer.for_problems([p for _, p, _ in problems.values()],
+                                        n_lanes=SERVE_LANES, segment_len=SERVE_SEGMENT,
+                                        policy=SERVE_POLICY)
+        (results, by_id, walls, k3_lanes), got, wall = counted(
+            lambda srv=srv, problems=problems, backend=backend: serve_stream(
+                srv, problems, SERVE_JOBS, validate=backend == "auto"))
+        launches[f"serve {backend}"] = got
+        busy = generations_with_work(results.values(), SERVE_SEGMENT)
+        want = ({"pop_mlp_correct": len(SERVE_JOBS), "pop_generation_kernel": busy}
+                if backend == "auto" else
+                {"pop_mlp_correct": len(SERVE_JOBS) + busy, "pop_variation_kernel": busy})
+        require_launches(f"serve {backend}", got, want)
+        if backend == "auto" and (len(k3_lanes) != busy or sum(k3_lanes) != budget_sum):
+            raise AssertionError(f"serve auto: K3 covered {sum(k3_lanes)} lanes in "
+                                 f"{len(k3_lanes)} launches, expected the budgets' sum "
+                                 f"{budget_sum} in {busy}")
+        if sorted(results) != sorted(by_id):
+            raise AssertionError(f"serve {backend}: retired {sorted(results)}")
+        require_trainer_parity(f"serve {backend}", results, by_id, problems, cfg, dev,
+                               baselines)
+        out[backend] = results
+        seg_ms = [round(w * 1e3, 2) for w in walls]
+        print(f"[serve] suite stream, generation {backend}: {len(SERVE_JOBS)} jobs "
+              f"{[f'{n}/{s}:{b}' for n, s, b in SERVE_JOBS]} on {SERVE_LANES} lanes, pop "
+              f"{SUITE_POP}, segments of {SERVE_SEGMENT}, policy {SERVE_POLICY}: makespan "
+              f"{srv.segments_done} segments ({busy} generations with an active lane), "
+              f"{wall:.2f} s; per segment {seg_ms} ms; {budget_sum / sum(walls):.2f} "
+              f"generations/s summed over the lanes; launches {got}"
+              f"{f'; K3 lanes per launch {k3_lanes}' if backend == 'auto' else ''}; every "
+              f"job equals its standalone GATrainer.run (every field, unique_evals, "
+              f"cache_hits); {smi}")
+        if backend == "auto":
+            # run_suite's batched generation for the same 4 lanes (the first
+            # four jobs, ungated, every lane active), host clock between CUDA
+            # events, beside the server's full segments
+            first = [problems[n][1] for n, _, _ in SERVE_JOBS[:SERVE_LANES]]
+            lanes = engine.stack_problems([sweep.pad_lane(p, srv.spec, srv.max_samples)
+                                           for p in first])
+            keys = torch.stack([prng.PRNGKey(s, dev)
+                                for _, s, _ in SERVE_JOBS[:SERVE_LANES]])
+            states, _ = engine.init_state(lanes, keys)
+            gen_ms = time_ms(lambda: engine.generation(lanes, states), reps=3, warmup=1)
+            # the server's steady segments: every lane busy, no admission
+            steady = [k for k in range(len(walls))
+                      if sum(r.admitted_segment <= k < r.retired_segment
+                             for r in results.values()) == SERVE_LANES
+                      and all(r.admitted_segment != k for r in results.values())]
+            serve_ms = sum(walls[k] for k in steady) * 1e3 / (len(steady) * SERVE_SEGMENT)
+            print(f"[serve] run_suite's batched generation of {SERVE_LANES} lanes (the "
+                  f"first {SERVE_LANES} jobs, pop {SUITE_POP}, generation auto): "
+                  f"{gen_ms:.2f} ms, against the server's {serve_ms:.2f} ms per generation "
+                  f"over its segments with every lane busy and no admission ({steady}); "
+                  f"{smi}")
+    for jid in out["auto"]:
+        require_state(f"serve job {jid} auto vs phases", out["phases"][jid].state,
+                      out["auto"][jid].state, fields=FIELDS)
+
+    # (ii) the device-variation stream: K4 per admission, K3 n_dev per
+    # generation with an active lane
+    mcfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS,
+                           variation_mode="mean", n_device_samples=K_DEV)
+    problems = {ds.name: (ds, p, dope) for ds, p, dope in suite_problems(dev, mcfg, baselines)
+                if ds.name in ("breast_cancer", "redwine")}
+    srv = SearchServer.for_problems([p for _, p, _ in problems.values()], n_lanes=2,
+                                    segment_len=SERVE_SEGMENT, policy=SERVE_POLICY)
+    (results, by_id, walls, k3_lanes), got, wall = counted(
+        lambda: serve_stream(srv, problems, SERVE_MC_JOBS))
+    launches["serve mc"] = got
+    busy = generations_with_work(results.values(), SERVE_SEGMENT)
+    require_launches("serve mc", got, {"pop_mlp_correct_mc": len(SERVE_MC_JOBS),
+                                       "pop_generation_kernel_mc": busy})
+    if sum(k3_lanes) != sum(b for _, _, b in SERVE_MC_JOBS):
+        raise AssertionError(f"serve mc: K3 n_dev covered {sum(k3_lanes)} lanes")
+    require_trainer_parity("serve mc", results, by_id, problems, mcfg, dev, baselines)
+    print(f"[serve] device-variation stream (variation_mode=mean, K={K_DEV}): "
+          f"{[f'{n}/{s}:{b}' for n, s, b in SERVE_MC_JOBS]} on 2 lanes: makespan "
+          f"{srv.segments_done} segments, {wall:.2f} s; launches {got}; every job equals "
+          f"its standalone GATrainer.run; {smi}")
+
+    # (iii) a poisoned lane: NaN in one lane's objectives after a segment is
+    # flagged on that lane alone, and quarantine_lane frees it
+    cfg = engine.GAConfig(pop_size=SUITE_POP, generations=SUITE_GENS)
+    problems = {ds.name: (ds, p, dope) for ds, p, dope in suite_problems(dev, cfg, baselines)}
+    srv = SearchServer.for_problems([p for _, p, _ in problems.values()],
+                                    n_lanes=SERVE_LANES, segment_len=SERVE_SEGMENT)
+    jobs = SERVE_JOBS[:SERVE_LANES]
+    for name, seed, _ in jobs:
+        _, prob, dope = problems[name]
+        srv.submit(prob, generations=2 * SERVE_SEGMENT, seed=seed, doping_seeds=dope)
+    srv.step()
+    srv.lane_state(2).obj[0, 0] = float("nan")
+    flags = [engine.validate_state(srv.lane_problem(lane), srv.lane_state(lane)).tolist()
+             for lane in range(SERVE_LANES)]
+    want = [[lane != 2, True, True, True] for lane in range(SERVE_LANES)]
+    if flags != want:
+        raise AssertionError(f"serve: validate_state flags {flags}, expected {want}")
+    bad = srv.quarantine_lane(2, "finite_objectives")
+    if bad.ok or bad.front is not None or 2 in srv.active_jobs or bad.generations_run != \
+            SERVE_SEGMENT:
+        raise AssertionError("serve: the quarantined lane was not freed as failed")
+    rest = {r.job_id: r for r in srv.drain()}
+    by_id = {i: (n, s, 2 * SERVE_SEGMENT) for i, (n, s, _) in enumerate(jobs) if i != bad.job_id}
+    require_trainer_parity("serve after quarantine", rest, by_id, problems, cfg, dev, baselines)
+    print(f"[serve] validate_state held on every busy lane at every boundary of the auto "
+          f"stream; NaN written into lane 2's objectives: flags {flags} (finite_objectives "
+          f"of lane 2 alone); quarantine_lane freed it (ok False, generations_run "
+          f"{bad.generations_run}); the other {len(rest)} jobs still equal their trainers")
+    return launches
+
+
 def probe_phase() -> dict:
     """Phase 4c: the fallback chain's probe on the card. With the memo and
     the launch counts reset, ``resolve_backends(..., fallback=True)`` must
@@ -1682,12 +1923,13 @@ def main() -> int:
               f"CPU (plain paths), bit for bit")
 
     # -- 4b. the batched entry points; 4c. the fallback chain's probe; 4d. the
-    # paper's pipeline; 4e. the islands --------------------------------------------
+    # paper's pipeline; 4e. the islands; 4f. the search server ----------------------
     baselines = {}      # each suite dataset's float net, bespoke baseline, doping
     batched = batched_paths(dev, baselines)
     probe_launches = probe_phase()
     pipeline = paper_pipeline(dev, smi, baselines)
     isl = island_paths(dev, smi)          # launches per counted path
+    serve = serve_paths(dev, smi, baselines)
 
     # -- 5. LM-side ops --------------------------------------------------------
     lm = lm_path(dev)
@@ -1794,7 +2036,7 @@ def main() -> int:
                      "launches": launches[mode][name] + sum(
                          n.get(name, 0) for n in (*batched["launches"].values(),
                                                   *pipeline["launches"].values(),
-                                                  *isl.values())),
+                                                  *isl.values(), *serve.values())),
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the

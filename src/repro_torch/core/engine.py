@@ -13,10 +13,12 @@ Batching (the reference's ``vmap`` over whole runs) is an explicit leading
 lane axis: a batched :class:`Problem` (:func:`stack_problems`, its config
 tagged with :data:`BATCH_AXIS`) and its :class:`GAState` carry an (L, ...)
 axis on every tensor leaf. Each generation launches every CUDA kernel of
-its path once for all lanes; the glue around them (tournament, dedup
+its path once for all lanes (under the budget gate, for the lanes with
+budget left: :func:`run_scanned`); the glue around them (tournament, dedup
 packing, objectives, ranking) runs lane by lane. :func:`run_batch` batches
 seeds, ``sweep.run_grid``/``sweep.run_suite`` hyperparameters and
-datasets.
+datasets; ``repro_torch.serve`` admits and retires lanes between
+segments. :func:`validate_state` checks a lane's invariants.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .genome import (SLOT_DEVICE, GeneTable, GenomeSpec, MLPTopology,
 from .mlp import population_correct_counts
 from .pareto import pareto_front
 from .quantize import quantize_inputs
-from ..device import device_of, not_ported
+from ..device import device_of
 from ..kernels.backend import BackendPolicy
 
 NO_BUDGET = np.int32(2**31 - 1)
@@ -49,7 +51,7 @@ _LEGACY_BACKEND_FIELDS = (("fitness", "fitness_backend"),
 @dataclasses.dataclass(frozen=True)
 class GAConfig:
     """Every field of ``repro.core.engine.GAConfig``, so configs carry
-    across; fields whose path is not ported raise ``NotImplementedError``."""
+    across; values the reference refuses raise ``ValueError`` here too."""
 
     pop_size: int = 256
     generations: int = 150
@@ -76,6 +78,9 @@ class GAConfig:
     n_device_samples: int = 8
     device_seed: int = 0
     variation_scale: float = 0.2
+    # None: no budget gate. An int turns the gate on: the
+    # ``Problem.generations_budget`` leaf (defaulted from it, set per lane)
+    # bounds the generations ``run_scanned`` runs on each lane
     generations_budget: int | None = None
     backends: BackendPolicy | None = None
 
@@ -109,8 +114,6 @@ class GAConfig:
                 "variation_mode != 'off' needs a count-based fitness "
                 "backend (auto/kernel/ref): the 'jnp' oracle has no "
                 "device-instance axis")
-        if self.generations_budget is not None:
-            raise not_ported("per-lane generation budgets", "A12")
         if self.batch_axis not in (None, BATCH_AXIS):
             raise ValueError(f"GAConfig.batch_axis must be None or {BATCH_AXIS!r}, "
                              f"the port's one lane axis; got {self.batch_axis!r}")
@@ -195,8 +198,9 @@ class Problem:
         if self.variation_scale is None:
             self.variation_scale = _f32(self.cfg.variation_scale, dev)
         if self.generations_budget is None:
-            self.generations_budget = torch.tensor(NO_BUDGET, dtype=torch.int32,
-                                                   device=dev)
+            budget = (NO_BUDGET if self.cfg.generations_budget is None
+                      else self.cfg.generations_budget)
+            self.generations_budget = torch.tensor(budget, dtype=torch.int32, device=dev)
 
     @property
     def device(self) -> torch.device:
@@ -631,21 +635,76 @@ def generation(problem: Problem, state: GAState):
     return population_generation(problem, state)
 
 
+def lane_active(problem: Problem, state: GAState) -> torch.Tensor:
+    """() bool (or (L,) on a batched problem): whether a lane still has
+    generation budget left."""
+    return state.gen < problem.generations_budget
+
+
+def lane_subset(problem: Problem, idx: tuple) -> Problem:
+    """Lanes ``idx`` of a batched problem as a batched problem of their own
+    (``problem`` itself when ``idx`` is every lane, or ``problem`` is a
+    single one); memoized per subset, so each subset's :func:`lane_data` is
+    built once."""
+    if problem.n_lanes is None or idx == tuple(range(problem.n_lanes)):
+        return problem
+    memo = problem.__dict__.setdefault("_subsets", {})
+    if idx not in memo:
+        memo[idx] = stack_problems([problem.lane(i) for i in idx])
+    return memo[idx]
+
+
+def _passthrough_aux(state: GAState) -> tuple:
+    """The aux entry of a lane that did not run: its best objectives, no
+    rows evaluated, no cache hits (device tensors)."""
+    zero = torch.zeros((), dtype=torch.int32, device=state.obj.device)
+    return state.obj[:, 0].min(), state.obj[:, 1].min(), zero, zero
+
+
 def run_scanned(problem: Problem, state: GAState, generations: int):
     """All ``generations`` in a Python loop → (final state, aux) with each
     aux entry stacked to shape (generations,), or (L, generations) on a
-    batched problem. Nothing is read back to the host inside the loop."""
+    batched problem.
+
+    With ``cfg.generations_budget`` None every lane runs every generation
+    and nothing is read back to the host. With the budget gate on (an int),
+    lane i is active while ``gen < generations_budget``: each lane's ``gen``
+    and budget are read to the host ONCE, at the start of the call (the
+    call's only host read), and lane i then runs the first
+    ``max(0, budget_i - gen_i)`` generations of the call, since its ``gen``
+    advances only while it runs. Each generation hands only the active
+    lanes to ``generation_lanes`` (:func:`lane_subset`), so every kernel
+    launch and the shared dedup bound cover exactly those lanes, and a
+    generation with no active lane runs nothing. An inactive lane passes
+    through bitwise (every leaf, its EvalCache included) with aux
+    ``(min error, min area, 0, 0)``; an active lane runs the plain
+    generation. So calling again on the returned state resumes where each
+    lane's budget says, which is what ``repro_torch.serve`` segments on."""
     from ..kernels.pop_generation import generation_lanes
 
     lanes = problem.lanes()
     states = split_state(problem, state)
-    auxes = []
-    for _ in range(generations):
-        states, aux = generation_lanes(problem, lanes, states)
-        auxes.append(aux)
-    if auxes:
-        per_lane = [tuple(torch.stack([a[i][k] for a in auxes]) for k in range(4))
-                    for i in range(len(lanes))]
+    L = len(lanes)
+    if problem.cfg.generations_budget is None:
+        runs = [generations] * L
+    else:
+        left = (problem.generations_budget - state.gen).reshape(-1).tolist()
+        runs = [min(generations, max(0, n)) for n in left]
+    auxes = [[] for _ in range(L)]
+    for t in range(generations):
+        idx = tuple(i for i in range(L) if runs[i] > t)
+        if idx:
+            new, aux = generation_lanes(lane_subset(problem, idx), [lanes[i] for i in idx],
+                                        [states[i] for i in idx])
+            for i, s, a in zip(idx, new, aux):
+                states[i] = s
+                auxes[i].append(a)
+        for i in range(L):
+            if runs[i] <= t:
+                auxes[i].append(_passthrough_aux(states[i]))
+    if generations:
+        per_lane = [tuple(torch.stack([a[k] for a in lane_aux]) for k in range(4))
+                    for lane_aux in auxes]
     else:
         per_lane = [tuple(torch.empty(0, device=problem.device) for _ in range(4))
                     for _ in lanes]
@@ -744,6 +803,66 @@ def run_batch(problem: Problem, seeds, generations: int | None = None,
     states, n0 = init_state(batched, keys, doping_seeds)
     states, aux = run_scanned(batched, states, gens)
     return states, aux, n0
+
+
+# -- lane health validation (the serve supervisor's boundary check) ---------
+
+# check names, index-aligned with the validate_state result vector
+VALIDATION_CHECKS = ("finite_objectives", "genome_in_bounds",
+                     "counts_in_range", "cache_accounting")
+
+
+def validate_state(problem: Problem, state: GAState) -> torch.Tensor:
+    """Engine-invariant checks of one lane → (len(VALIDATION_CHECKS),) bool,
+    index-aligned with the names; on a batched problem and state, every
+    lane in one pass → (L, len(VALIDATION_CHECKS)) bool. Nothing is read
+    back to the host.
+
+    A healthy state never trips them (every generation keeps them), while
+    a poisoned lane fails:
+
+      * ``finite_objectives`` — every objective is finite and every
+        violation finite and non-negative (crowding is not checked: its
+        boundary rows are +inf by design);
+      * ``genome_in_bounds`` — every gene lies in its table's
+        ``[low, high)`` (padding genes' ``[0, 1)`` pins them to zero);
+      * ``counts_in_range`` — the correct counts lie in
+        ``[0, n_valid_samples]`` ((P,) or (P, K));
+      * ``cache_accounting`` — live EvalCache entries (stamp >= 0) hold
+        counts in that range and no stamp exceeds the lane's ``gen``
+        (``vals`` (C,) or (C, K)); True when there is no cache.
+    """
+    single = problem.n_lanes is None
+    one = (lambda t: t[None]) if single else (lambda t: t)
+    L = 1 if single else problem.n_lanes
+    flat = lambda t: one(t).reshape(L, -1)      # noqa: E731
+    t = problem.genes
+    finite = (torch.isfinite(flat(state.obj)).all(1) & torch.isfinite(flat(state.viol)).all(1)
+              & (flat(state.viol) >= 0.0).all(1))
+    pop = one(state.pop)
+    in_bounds = ((pop >= one(t.low)[:, None]) & (pop < one(t.high)[:, None])).reshape(
+        L, -1).all(1)
+    n = one(problem.n_valid_samples).reshape(L, 1)
+    counts = flat(state.counts)
+    counts_ok = ((counts >= 0) & (counts <= n)).all(1)
+    if state.cache is None:
+        cache_ok = torch.ones(L, dtype=torch.bool, device=pop.device)
+    else:
+        stamp = flat(state.cache.stamp)                          # (L, C)
+        live = stamp >= 0
+        vals = one(state.cache.vals).reshape(*stamp.shape, -1)   # (L, C, K or 1)
+        vals_ok = (~live[..., None] | ((vals >= 0) & (vals <= n[..., None]))).reshape(
+            L, -1).all(1)
+        stamp_ok = (~live | (stamp <= one(state.gen).reshape(L, 1))).all(1)
+        cache_ok = vals_ok & stamp_ok
+    out = torch.stack([finite, in_bounds, counts_ok, cache_ok], dim=-1)
+    return out[0] if single else out
+
+
+def validate_ok(problem: Problem, state: GAState) -> torch.Tensor:
+    """() bool (or (L,) on a batched problem): all
+    :data:`VALIDATION_CHECKS` hold."""
+    return validate_state(problem, state).all(-1)
 
 
 # -- host-side output -------------------------------------------------------

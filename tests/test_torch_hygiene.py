@@ -5,8 +5,9 @@
 * entry points default to the card and raise without one unless the CPU
   is asked for; a "kernel" backend on a CPU tensor raises, and so does
   ``use_kernel=True`` in the LM-side ops;
-* config fields whose path is not ported raise ``NotImplementedError``,
-  and the backend names are the reference's minus "interpret";
+* every config field of the reference is accepted (the budget gate of
+  A12a included) or refused as the reference refuses it, and the backend
+  names are the reference's minus "interpret";
   device-variation fitness is ported and needs a count-based backend;
 * every C launcher in ``csrc/*.cu`` is bound with the ctypes signature of
   its parameters, so a changed launcher cannot be called with a stale one.
@@ -125,11 +126,15 @@ def test_lm_op_with_use_kernel_on_cpu_tensors_raises(op):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(generations_budget=5), NotImplementedError, "A12"),
+    # A12a (the per-lane budget gate) is ported: the budget is accepted
+    (dict(generations_budget=5), None, None),
     # A11 (batching) is ported: its one lane axis is engine.BATCH_AXIS, and
     # any other axis name is refused
     (dict(batch_axis="runs"), ValueError, "ga_runs")], ids=["kw1-A12", "kw2-A11"])
 def test_unported_config_paths_raise(kw, exc, match):
+    if exc is None:
+        assert GAConfig(**kw).generations_budget == kw["generations_budget"]
+        return
     with pytest.raises(exc, match=match):
         GAConfig(**kw)
     if exc is ValueError:
