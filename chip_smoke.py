@@ -93,6 +93,24 @@ Phases, each fatal on failure (a mismatch raises, nothing falls back):
    ``[serve]`` lines give the wall time per segment, the generations per
    second summed over the lanes and the makespan, beside a 4-lane batched
    generation of ``run_suite``'s kind;
+4g. the supervised server (``repro_torch.serve.Supervisor``, checkpoints
+   every 2 segments into a temporary directory): a checkpoint of a card
+   server after one segment of 4f's suite stream, its bytes reckoned from
+   the shapes, saved, verified and restored on the card and on the CPU,
+   every leaf equal to the card server's; then two counted paths: 4f's
+   auto stream supervised without faults (every job equal to 4f's result,
+   K1 once per admission, K3 once per generation with an active lane, its
+   lanes summing to the budgets), and the same stream under a fault
+   schedule (a segment fault and a checkpoint IO error, both retried; lane
+   0 poisoned and quarantined, naming ``finite_objectives``; step 4
+   bit-rotted after its save; a kill after segment 4), recovered in the
+   same process from step 2 with ``dropped_pending`` resubmitted and
+   drained: every healthy result equal to 4f's, the stats at the kill and
+   after the recovery, K1 (admissions and the recovered server), K3 and
+   its lanes as reckoned from the schedule alone, replays included;
+   ``[supervisor]`` lines give the checkpoint's bytes, the save, verify and
+   restore times, the supervised stream's wall time against the bare
+   one's and the share of validation and checkpoints;
 5. LM-side ops, the third path, with the launch counts set to 0 just
    before it and read just after — ``state_scan`` at mamba2-130m width,
    ``pow2_linear`` at qwen3-14b's FFN projection (bf16 tokens, weights
@@ -136,10 +154,12 @@ before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -1352,6 +1372,34 @@ def generations_with_work(results, segment_len: int) -> int:
     return len(busy)
 
 
+@contextlib.contextmanager
+def k3_lanes_recorded():
+    """Record the lane count of every K3 launch made inside, one entry a
+    launch."""
+    from repro_torch.kernels.pop_generation import ops as gen_ops
+
+    lanes, launch_k3 = [], gen_ops.pop_generation_kernel
+
+    def k3(a_rows, *args, **kw):
+        lanes.append(a_rows.shape[0] if a_rows.dim() == 3 else 1)
+        return launch_k3(a_rows, *args, **kw)
+
+    gen_ops.pop_generation_kernel = k3
+    try:
+        yield lanes
+    finally:
+        gen_ops.pop_generation_kernel = launch_k3
+
+
+def serve_job(name: str, seed: int, budget: int, problems: dict):
+    """The stream's job for ``name``'s problem, doped as the stream dopes
+    it, named ``name/seed``."""
+    from repro_torch.serve import SearchJob
+
+    _, prob, dope = problems[name]
+    return SearchJob(prob, budget, seed=seed, doping_seeds=dope, name=f"{name}/{seed}")
+
+
 def serve_stream(srv, problems: dict, jobs, validate: bool = False):
     """Submit ``jobs`` ((dataset, seed, budget)) to ``srv`` and step until it
     drains; → (results by job id, the jobs by id, each step's wall seconds,
@@ -1359,23 +1407,11 @@ def serve_stream(srv, problems: dict, jobs, validate: bool = False):
     pass ``engine.validate_state`` at every segment boundary (untimed)."""
     import torch
     from repro_torch.core import engine
-    from repro_torch.kernels.pop_generation import ops as gen_ops
-    from repro_torch.serve import SearchJob
 
-    by_id = {}
-    for name, seed, budget in jobs:
-        _, prob, dope = problems[name]
-        by_id[srv.submit(SearchJob(prob, budget, seed=seed, doping_seeds=dope,
-                                   name=f"{name}/{seed}"))] = (name, seed, budget)
-    k3_lanes, launch_k3 = [], gen_ops.pop_generation_kernel
-
-    def k3(a_rows, *args, **kw):
-        k3_lanes.append(a_rows.shape[0] if a_rows.dim() == 3 else 1)
-        return launch_k3(a_rows, *args, **kw)
-
+    by_id = {srv.submit(serve_job(name, seed, budget, problems)): (name, seed, budget)
+             for name, seed, budget in jobs}
     results, walls = {}, []
-    gen_ops.pop_generation_kernel = k3
-    try:
+    with k3_lanes_recorded() as k3_lanes:
         while srv.has_work:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1388,8 +1424,6 @@ def serve_stream(srv, problems: dict, jobs, validate: bool = False):
                 if not bool(flags.all()):
                     raise AssertionError(f"serve: lane {lane} fails validate_state "
                                          f"{flags.tolist()} at segment {srv.segments_done}")
-    finally:
-        gen_ops.pop_generation_kernel = launch_k3
     return results, by_id, walls, k3_lanes
 
 
@@ -1427,7 +1461,10 @@ def serve_paths(dev, smi: str, baselines: dict) -> dict:
     lane, K3's lanes summed over its launches equal to the jobs' budgets;
     (ii) the device-variation stream (K4, K3 ``n_dev``); (iii)
     ``validate_state`` on every busy lane at every boundary, a poisoned
-    lane flagged alone and quarantined; (iv) the ``[serve]`` times."""
+    lane flagged alone and quarantined; (iv) the ``[serve]`` times.
+    → the launches of each path, and the auto stream's results (by job
+    name), wall seconds, problems and config, which phase 4g holds the
+    supervised stream to."""
     import torch
     from repro_torch.core import engine, prng, sweep
     from repro_torch.kernels.backend import BackendPolicy
@@ -1446,6 +1483,9 @@ def serve_paths(dev, smi: str, baselines: dict) -> dict:
             lambda srv=srv, problems=problems, backend=backend: serve_stream(
                 srv, problems, SERVE_JOBS, validate=backend == "auto"))
         launches[f"serve {backend}"] = got
+        if backend == "auto":
+            auto = dict(results={r.name: r for r in results.values()}, wall=wall,
+                        problems=problems, cfg=cfg)
         busy = generations_with_work(results.values(), SERVE_SEGMENT)
         want = ({"pop_mlp_correct": len(SERVE_JOBS), "pop_generation_kernel": busy}
                 if backend == "auto" else
@@ -1546,6 +1586,330 @@ def serve_paths(dev, smi: str, baselines: dict) -> dict:
           f"stream; NaN written into lane 2's objectives: flags {flags} (finite_objectives "
           f"of lane 2 alone); quarantine_lane freed it (ok False, generations_run "
           f"{bad.generations_run}); the other {len(rest)} jobs still equal their trainers")
+    return dict(launches=launches, auto=auto)
+
+
+# -- the supervised server ---------------------------------------------------------
+
+# phase 4f's suite stream under a Supervisor that checkpoints every 2 of its
+# segments, with one fault of each kind on a fixed schedule keyed by the
+# supervisor's segment index: a transient fault before segment 1's dispatch
+# and an IO error in segment 1's checkpoint save (both retried), lane 0
+# poisoned with NaN objectives after segment 1 (quarantined before step 2
+# commits), step 4 bit-rotted after its save, a kill after segment 4; the
+# recovery skips step 4 back to step 2
+SUPERVISED_EVERY = 2
+SUPERVISED_TIMEOUT_S = 300.0    # the fault-free stream's watchdog: far above a segment
+SUPERVISED_CHAOS = dict(segment_faults=(1,), io_errors=(1,), poison={1: 0},
+                        poison_leaf="obj", corrupt_steps=(4,), corrupt_kind="bitflip",
+                        kill_after_segment=4)
+
+
+def reckon_supervised(jobs, n_lanes: int, segment_len: int, every: int, chaos: dict) -> dict:
+    """What the fault schedule implies, reckoned on the host from the jobs
+    and the schedule alone, without the server: pending jobs enter free
+    lanes in lane order, longest budget first (ties in submission order);
+    each generation with an active lane is one K3 launch covering the
+    active lanes; a job retires at the boundary where its budget is spent,
+    the poisoned lane's job at its boundary; a checkpoint after every
+    ``every``-th supervisor segment records the lanes and the queue under
+    the segments done; the kill restores the newest step that is not
+    corrupted, whose queued jobs are resubmitted in their order, and the
+    run replays from there under a supervisor without faults. →
+    admissions (one K1 launch each), K3 launches and their lanes summed,
+    the restored step, the victim's job index, and the supervisor's stats
+    at the kill and after the recovery."""
+    pending = list(range(len(jobs)))          # job indices in submission order
+    lanes = [None] * n_lanes                  # [job index, generations left]
+    saved, out = {}, dict(admissions=0, k3=0, k3_lanes=0, victim=None)
+    stats = [dict(segments=0, retries=0, checkpoints=0, quarantined=0, converged=0)
+             for _ in range(2)]
+    idx = done = 0
+    killed = False
+    while pending or any(lanes):
+        for lane in range(n_lanes):
+            if lanes[lane] is None and pending:
+                j = max(pending, key=lambda j: (jobs[j][2], -j))
+                pending.remove(j)
+                lanes[lane] = [j, jobs[j][2]]
+                out["admissions"] += 1
+        if any(lanes):
+            for t in range(segment_len):
+                active = sum(lane is not None and lane[1] > t for lane in lanes)
+                out["k3"] += active > 0
+                out["k3_lanes"] += active
+            done += 1
+            for lane in lanes:
+                if lane is not None:
+                    lane[1] -= segment_len
+            lanes = [lane if lane is not None and lane[1] > 0 else None for lane in lanes]
+        st = stats[killed]
+        st["segments"] += 1
+        st["retries"] += not killed and idx in chaos["segment_faults"]
+        victim_lane = None if killed else chaos["poison"].get(idx)
+        if victim_lane is not None:
+            out["victim"], lanes[victim_lane] = lanes[victim_lane][0], None
+            st["quarantined"] += 1
+        if (idx + 1) % every == 0:
+            saved[done] = ([None if lane is None else list(lane) for lane in lanes],
+                           list(pending))
+            st["checkpoints"] += 1
+            st["retries"] += not killed and idx in chaos["io_errors"]
+        if not killed and idx >= chaos["kill_after_segment"]:
+            killed = True
+            out["restored"] = done = max(s for s in saved if s not in chaos["corrupt_steps"])
+            lanes = [None if lane is None else list(lane) for lane in saved[done][0]]
+            pending = list(saved[done][1])
+            idx = done
+            continue
+        idx += 1
+    out["stats"] = stats
+    return out
+
+
+def same_result(what: str, got, want):
+    """A healthy JobResult equals phase 4f's: every state field, the front's
+    objectives, ``unique_evals``, ``cache_hits``, ``generations_run``."""
+    require_state(what, got.state, want.state, fields=FIELDS)
+    if not (got.ok and (got.unique_evals, got.cache_hits, got.generations_run)
+            == (want.unique_evals, want.cache_hits, want.generations_run)
+            and same(got.front["objectives"], want.front["objectives"])):
+        raise AssertionError(f"{what}: ok {got.ok}, accounting "
+                             f"{(got.unique_evals, got.cache_hits, got.generations_run)} vs "
+                             f"{(want.unique_evals, want.cache_hits, want.generations_run)}"
+                             f" or front differs")
+
+
+def payload_leaves(srv) -> dict:
+    """The host copy of every leaf a save of ``srv`` writes but the meta
+    blob, by name (the PRNG keys as the file's uint32)."""
+    import dataclasses
+
+    from repro_torch.checkpoint import manager
+
+    states = dataclasses.replace(srv._states,
+                                 key=srv._states.key.cpu().numpy().astype(np.uint32))
+    return {name: np.asarray(leaf.cpu().numpy() if hasattr(leaf, "cpu") else leaf)
+            for name, leaf in manager.named_leaves((states, srv._problems))}
+
+
+def supervised_paths(dev, smi: str, bare: dict) -> dict:
+    """Phase 4g: phase 4f's auto suite stream (``bare``: its results by job
+    name, wall seconds, problems and config) under ``Supervisor`` with a
+    checkpoint every 2 segments. (i) A checkpoint of a card server
+    mid-stream: its bytes reckoned from the shapes, then written, verified
+    and restored on the card and on the CPU, every leaf equal to the card
+    server's. (ii) The fault-free supervised stream, a counted path, each
+    segment on the watchdog's thread under the caller's stream: every
+    job equal to phase 4f's, its wall time against the bare stream's, the
+    validation's and the checkpoints' share. (iii) The fault schedule
+    (:data:`SUPERVISED_CHAOS`), a counted path with the recovery inside:
+    the retries, the quarantined victim naming its check, recovery from
+    step 2, ``dropped_pending`` resubmitted; every healthy job equal to
+    phase 4f's; K1 once per admission and once for the recovered server's
+    construction, K3 and its lanes as :func:`reckon_supervised` reckons them
+    from the schedule. → the launches of each counted path."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import manager
+    from repro_torch.serve import (ChaosKill, ChaosPlan, FaultPolicy, SearchServer,
+                                   Supervisor)
+
+    problems, cfg, want = bare["problems"], bare["cfg"], bare["results"]
+    probs = [p for _, p, _ in problems.values()]
+    lanes_kw = dict(n_lanes=SERVE_LANES, segment_len=SERVE_SEGMENT)
+    jobs = [serve_job(name, seed, budget, problems) for name, seed, budget in SERVE_JOBS]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        # (i) one checkpoint of a card server after its first segment (four
+        # lanes busy, four jobs queued)
+        srv = SearchServer.for_problems(probs, policy=SERVE_POLICY, **lanes_kw)
+        for job in jobs:
+            srv.submit(job)
+        srv.step()
+        host = payload_leaves(srv)
+        reckoned = sum(a.nbytes for a in host.values())
+        rows = srv._states.cache.rows
+        d = str(Path(tmp) / "one")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.save(d, allow_pending=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        manifest = manager.verify_checkpoint(d, srv.segments_done)
+        verify_s = time.perf_counter() - t0
+        files = sum(m["file_size"] for m in manifest["leaves"].values())
+        payload = sum(int(np.prod(m["shape"])) * np.dtype(m["dtype"]).itemsize
+                      for name, m in manifest["leaves"].items() if name != "2")
+        if payload != reckoned:
+            raise AssertionError(f"supervisor: the checkpoint holds {payload} B of leaves, "
+                                 f"reckoned {reckoned} B from the shapes")
+        restore_s = {}
+        for where in (dev, torch.device("cpu")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            back = SearchServer.restore(d, srv.spec, cfg, device=where)
+            torch.cuda.synchronize()
+            restore_s[where.type] = time.perf_counter() - t0
+            got = payload_leaves(back)
+            bad = [n for n in host if not (n in got and got[n].dtype == host[n].dtype
+                                           and same(got[n], host[n]))]
+            if bad or sorted(got) != sorted(host) or back.active_jobs != srv.active_jobs \
+                    or [p["name"] for p in back.dropped_pending] != \
+                    [srv._jobs[j].name for j in srv.pending_jobs] \
+                    or back._states.pop.device.type != where.type:
+                raise AssertionError(f"supervisor: the {where.type} restore of the card's "
+                                     f"checkpoint differs (leaves {bad})")
+        print(f"[supervisor] checkpoint of {SERVE_LANES} lanes after one segment "
+              f"(pop {cfg.pop_size}, G {srv.spec.n_genes}, {len(host) + 1} leaves): reckoned "
+              f"from the shapes {reckoned} B, of it the EvalCache rows "
+              f"{tuple(rows.shape)} {rows.dtype} {rows.numel() * rows.element_size()} B; "
+              f"files {files} B with the meta blob and the .npy headers; save "
+              f"{save_s:.3f} s, verify_checkpoint {verify_s:.3f} s, restore to the card "
+              f"{restore_s[dev.type]:.3f} s, to the CPU {restore_s['cpu']:.3f} s; the CPU "
+              f"and card restores equal the card server leaf for leaf; {smi}")
+        del srv, back
+
+        # (ii) the fault-free supervised stream
+        sup = Supervisor.for_problems(
+            probs, FaultPolicy(checkpoint_every=SUPERVISED_EVERY,
+                               segment_timeout_s=SUPERVISED_TIMEOUT_S),
+            directory=str(Path(tmp) / "clean"), scheduler_policy=SERVE_POLICY, **lanes_kw)
+        spent = {"_validate": 0.0, "_maybe_checkpoint": 0.0}
+        # the watchdog runs each segment on its own thread: record the thread
+        # and the stream each segment ran on
+        seen, server_step = [], sup.server.step
+
+        def step_seen():
+            seen.append((threading.get_ident(), torch.cuda.current_stream(dev)))
+            return server_step()
+
+        sup.server.step = step_seen
+
+        def timed(name):
+            fn = getattr(sup, name)
+
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                return out
+            setattr(sup, name, run)
+
+        for name in spent:
+            timed(name)
+        for job in jobs:
+            sup.submit(job)
+
+        def clean_stream():
+            with k3_lanes_recorded() as k3:
+                return sup.drain(), k3
+
+        (results, k3), got, wall = counted(clean_stream)
+        launches["supervised"] = got
+        busy = generations_with_work(results, SERVE_SEGMENT)
+        require_launches("supervised", got, {"pop_mlp_correct": len(SERVE_JOBS),
+                                             "pop_generation_kernel": busy})
+        if sum(k3) != sum(b for _, _, b in SERVE_JOBS):
+            raise AssertionError(f"supervised: K3 covered {sum(k3)} lanes")
+        caller = torch.cuda.current_stream(dev)
+        if len(seen) != sup.stats["segments"] or any(
+                t == threading.get_ident() or st != caller for t, st in seen):
+            raise AssertionError(f"supervised: {len(seen)} segments of "
+                                 f"{sup.stats['segments']} ran on the watchdog's thread "
+                                 f"under the caller's stream")
+        if sorted(r.name for r in results) != sorted(want):
+            raise AssertionError(f"supervised: retired {[r.name for r in results]}")
+        for r in results:
+            same_result(f"supervised job {r.name}", r, want[r.name])
+        share = (spent["_validate"] + spent["_maybe_checkpoint"]) / wall
+        print(f"[supervisor] fault-free supervised stream (checkpoint every "
+              f"{SUPERVISED_EVERY} segments, validation every boundary, each segment on "
+              f"the watchdog's thread under a {SUPERVISED_TIMEOUT_S:.0f} s limit and the "
+              f"caller's stream): {wall:.2f} s "
+              f"against phase 4f's bare stream {bare['wall']:.2f} s "
+              f"({wall / bare['wall'] - 1:+.1%}); validation {spent['_validate'] * 1e3:.1f} ms "
+              f"over {sup.stats['segments']} boundaries, checkpoints "
+              f"{spent['_maybe_checkpoint'] * 1e3:.1f} ms over {sup.stats['checkpoints']} "
+              f"saves: {share:.1%} of the stream; stats {sup.stats}; launches {got}; every "
+              f"job equals phase 4f's; {smi}")
+        del sup
+
+        # (iii) the fault schedule, the recovery inside the counted path
+        plan = reckon_supervised(SERVE_JOBS, SERVE_LANES, SERVE_SEGMENT, SUPERVISED_EVERY,
+                                 SUPERVISED_CHAOS)
+        chaos_dir = str(Path(tmp) / "chaos")
+        sup = Supervisor.for_problems(
+            probs, FaultPolicy(checkpoint_every=SUPERVISED_EVERY, backoff_base_s=0.0),
+            directory=chaos_dir, chaos=ChaosPlan(**SUPERVISED_CHAOS),
+            scheduler_policy=SERVE_POLICY, **lanes_kw)
+        for job in jobs:
+            sup.submit(job)
+        seen = {}
+
+        def chaos_stream():
+            results = []
+            with k3_lanes_recorded() as k3:
+                try:
+                    while sup.server.has_work:
+                        results.extend(sup.step())
+                    raise AssertionError("supervisor: the scheduled kill never came")
+                except ChaosKill:
+                    pass
+                seen["killed"] = dict(sup.stats)
+                seen["steps"] = manager.list_steps(chaos_dir)
+                seen["valid"] = manager.latest_valid_step(chaos_dir)
+                t0 = time.perf_counter()
+                sup2 = Supervisor.recover(chaos_dir, sup.server.spec, cfg,
+                                          FaultPolicy(checkpoint_every=SUPERVISED_EVERY),
+                                          device=dev)
+                seen["recover_s"] = time.perf_counter() - t0
+                seen["pending"] = [m["name"] for m in sup2.dropped_pending]
+                for m in sup2.dropped_pending:
+                    name, seed = m["name"].split("/")
+                    sup2.submit(serve_job(name, int(seed), m["generations"], problems))
+                results.extend(sup2.drain())
+            seen["sup2"] = sup2
+            return results, k3
+
+        (results, k3), got, wall = counted(chaos_stream)
+    launches["supervised chaos"] = got
+    sup2 = seen["sup2"]
+    require_launches("supervised chaos", got, {
+        "pop_mlp_correct": plan["admissions"] + 1, "pop_generation_kernel": plan["k3"]})
+    if (len(k3), sum(k3)) != (plan["k3"], plan["k3_lanes"]):
+        raise AssertionError(f"supervised chaos: K3 covered {sum(k3)} lanes in {len(k3)} "
+                             f"launches, reckoned {plan['k3_lanes']} in {plan['k3']}")
+    victim = SERVE_JOBS[plan["victim"]]
+    victim = f"{victim[0]}/{victim[1]}"
+    failed = [r for r in results if not r.ok]
+    if [r.name for r in failed] != [victim] or "finite_objectives" not in failed[0].error \
+            or failed[0].front is not None:
+        raise AssertionError(f"supervised chaos: failed jobs "
+                             f"{[(r.name, r.error) for r in failed]}, expected {victim} "
+                             f"on finite_objectives")
+    healthy = [r for r in results if r.ok]
+    if sorted({r.name for r in healthy}) != sorted(set(want) - {victim}):
+        raise AssertionError(f"supervised chaos: healthy jobs {[r.name for r in healthy]}")
+    for r in healthy:
+        same_result(f"supervised chaos job {r.name}", r, want[r.name])
+    if ([seen["killed"], sup2.stats], sup2.recovered_step, seen["valid"]) != \
+            (plan["stats"], plan["restored"], plan["restored"]):
+        raise AssertionError(f"supervised chaos: stats {[seen['killed'], sup2.stats]} at the "
+                             f"kill and after the recovery, reckoned {plan['stats']}; "
+                             f"recovered step {sup2.recovered_step}, latest valid "
+                             f"{seen['valid']}, reckoned {plan['restored']}")
+    print(f"[supervisor] fault schedule {SUPERVISED_CHAOS}: at the kill stats "
+          f"{seen['killed']}, steps {seen['steps']} (step 4 rotted), recovered step "
+          f"{sup2.recovered_step} in {seen['recover_s']:.3f} s with dropped_pending "
+          f"{seen['pending']} resubmitted; after it stats {sup2.stats}; victim {victim}: "
+          f"{failed[0].error}; {len(healthy)} healthy results ({len(set(r.name for r in healthy))}"
+          f" jobs, replays included) equal phase 4f's; {wall:.2f} s; launches {got}, "
+          f"reckoned K1 {plan['admissions']} admissions + 1 server, K3 {plan['k3']} launches "
+          f"covering {plan['k3_lanes']} lanes; {smi}")
     return launches
 
 
@@ -1704,6 +2068,7 @@ def probe_numbers(dev, launches: int, smi: str) -> dict:
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1923,13 +2288,15 @@ def main() -> int:
               f"CPU (plain paths), bit for bit")
 
     # -- 4b. the batched entry points; 4c. the fallback chain's probe; 4d. the
-    # paper's pipeline; 4e. the islands; 4f. the search server ----------------------
+    # paper's pipeline; 4e. the islands; 4f. the search server; 4g. the
+    # supervised server ---------------------------------------------------------------
     baselines = {}      # each suite dataset's float net, bespoke baseline, doping
     batched = batched_paths(dev, baselines)
     probe_launches = probe_phase()
     pipeline = paper_pipeline(dev, smi, baselines)
     isl = island_paths(dev, smi)          # launches per counted path
     serve = serve_paths(dev, smi, baselines)
+    supervised = supervised_paths(dev, smi, serve["auto"])
 
     # -- 5. LM-side ops --------------------------------------------------------
     lm = lm_path(dev)
@@ -2036,7 +2403,9 @@ def main() -> int:
                      "launches": launches[mode][name] + sum(
                          n.get(name, 0) for n in (*batched["launches"].values(),
                                                   *pipeline["launches"].values(),
-                                                  *isl.values(), *serve.values())),
+                                                  *isl.values(),
+                                                  *serve["launches"].values(),
+                                                  *supervised.values())),
                      "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     # one whole generation from the final state of each e2e run, and the
@@ -2063,6 +2432,7 @@ def main() -> int:
     for k in saved:
         _cuda.LAUNCHES[k] = saved[k]
 
+    print(f"[time] the whole script {time.perf_counter() - start:.1f} s; {smi}")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -73,6 +73,15 @@ class EvalCache:
     stamp: torch.Tensor
     probes: int = 4
 
+    def tree_flatten(self):
+        """The reference's ``tree_flatten``: (rows, vals, stamp), ``probes``
+        as aux data."""
+        return (self.rows, self.vals, self.stamp), self.probes
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children, aux)
+
     @property
     def capacity(self) -> int:
         return self.vals.shape[0]

@@ -142,6 +142,16 @@ class GAState:
     gen: torch.Tensor        # () int32
     cache: EvalCache | None = None
 
+    def tree_flatten(self):
+        """Children in the reference's ``tree_flatten`` order, which names
+        the leaves of a checkpoint (``repro_torch.checkpoint``)."""
+        return (self.pop, self.obj, self.viol, self.rank, self.crowd,
+                self.counts, self.key, self.gen, self.cache), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
+
 
 def _f32(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
@@ -201,6 +211,18 @@ class Problem:
             budget = (NO_BUDGET if self.cfg.generations_budget is None
                       else self.cfg.generations_budget)
             self.generations_budget = torch.tensor(budget, dtype=torch.int32, device=dev)
+
+    def tree_flatten(self):
+        """Tensor children in the reference's ``tree_flatten`` order (its
+        checkpoint leaf names), ``spec`` and ``cfg`` as aux data."""
+        return ((self.x_int, self.labels, self.baseline_acc, self.crossover_rate,
+                 self.mutation_rate_gene, self.max_acc_loss, self.genes, self.out_mask,
+                 self.inv_n, self.n_valid_samples, self.variation_scale,
+                 self.generations_budget), (self.spec, self.cfg))
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children[:3], *aux, *children[3:])
 
     @property
     def device(self) -> torch.device:

@@ -74,6 +74,14 @@ class GeneTable:
     def leaves(self) -> tuple:
         return tuple(getattr(self, f.name) for f in dataclasses.fields(self))
 
+    def tree_flatten(self):
+        """The reference's ``tree_flatten``: the leaves in field order."""
+        return self.leaves(), None
+
+    @classmethod
+    def tree_unflatten(cls, aux, children):
+        return cls(*children)
+
     def lane(self, i: int) -> "GeneTable":
         """Lane ``i`` of a table whose leaves carry a leading lane axis."""
         return GeneTable(*(a[i] for a in self.leaves()))

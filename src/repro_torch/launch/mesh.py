@@ -40,10 +40,7 @@ class DeviceMesh:
             raise ValueError(f"mesh axes must hold at least one entry: {sizes}")
         object.__setattr__(self, "axis_sizes", sizes)
         object.__setattr__(self, "axis_names", names)
-        dev = device_of(self.device)
-        if dev.type == "cuda" and dev.index is None:   # the tensors' own form
-            dev = torch.device("cuda", torch.cuda.current_device())
-        object.__setattr__(self, "device", dev)
+        object.__setattr__(self, "device", device_of(self.device))
 
     @property
     def shape(self) -> dict:

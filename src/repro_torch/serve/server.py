@@ -18,25 +18,29 @@ The invariants:
     budget 0.
   * Bit-identity: each job's retired state/front/accounting equals its
     standalone ``GATrainer.run`` exactly.
+  * Checkpoints (:meth:`SearchServer.save`/:meth:`SearchServer.restore`) are
+    the reference's files, leaf for leaf: either package resumes the
+    other's.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
 
+from ..checkpoint import manager as ckpt
 from ..core import engine, prng, sweep
 from ..core import genome as genome_mod
 from ..core.engine import GAConfig, GAState, Problem
-from ..device import device_of, not_ported
+from ..device import device_of
 from .jobs import JobResult, SearchJob
 from .scheduler import LaneScheduler
 
-# the tensor leaves of a Problem besides its GeneTable's
-_PROBLEM_LEAVES = ("x_int", "labels", "baseline_acc", "crossover_rate",
-                   "mutation_rate_gene", "max_acc_loss", "out_mask", "inv_n",
-                   "n_valid_samples", "variation_scale", "generations_budget")
+# manifest key of the host-metadata blob: the third element of the
+# (states, problems, meta) checkpoint payload
+_META_LEAF = "2"
 
 
 def _canon_cfg(cfg: GAConfig) -> GAConfig:
@@ -45,24 +49,21 @@ def _canon_cfg(cfg: GAConfig) -> GAConfig:
     return dataclasses.replace(cfg, batch_axis=None, generations_budget=None)
 
 
-def _set_problem_lane(stacked: Problem, lane: int, single: Problem) -> Problem:
-    """Write ``single``'s leaves into lane ``lane`` of ``stacked``; returns
-    a new Problem over the same tensors, so nothing memoized on the old one
-    (lane views' data, lane subsets) outlives the write."""
-    for f in _PROBLEM_LEAVES:
-        getattr(stacked, f)[lane] = getattr(single, f)
-    for dst, src in zip(stacked.genes.leaves(), single.genes.leaves()):
+def _set_lane(stacked, lane: int, single):
+    """Write every leaf of ``single`` (a GAState or a Problem, its
+    GeneTable and EvalCache included) into lane ``lane`` of ``stacked``'s,
+    in place."""
+    for (_, dst), (_, src) in zip(ckpt.named_leaves(stacked), ckpt.named_leaves(single),
+                                  strict=True):
         dst[lane] = src
+
+
+def _set_problem_lane(stacked: Problem, lane: int, single: Problem) -> Problem:
+    """:func:`_set_lane` on a Problem; returns a new Problem over the same
+    tensors, so nothing memoized on the old one (lane views' data, lane
+    subsets) outlives the write."""
+    _set_lane(stacked, lane, single)
     return dataclasses.replace(stacked)
-
-
-def _set_state_lane(stacked: GAState, lane: int, single: GAState):
-    for f in engine._STATE_TENSORS:
-        getattr(stacked, f)[lane] = getattr(single, f)
-    if stacked.cache is not None:
-        for dst, src in zip(engine._cache_leaves(stacked.cache),
-                            engine._cache_leaves(single.cache)):
-            dst[lane] = src
 
 
 @dataclasses.dataclass
@@ -118,6 +119,9 @@ class SearchServer:
         self._jobs: dict[int, _JobRecord] = {}
         self._next_id = 0
         self._segments_done = 0
+        # filled by restore(): queued jobs an allow_pending save recorded
+        # but could not serialize; resubmit them to keep them
+        self.dropped_pending: list[dict] = []
         self._null = self._null_problem()
         null_state, _ = engine.init_state(
             dataclasses.replace(self._null, cfg=self._cfg_init),
@@ -168,7 +172,7 @@ class SearchServer:
         # the exact init a standalone GATrainer would run on this job
         state, n0 = engine.init_state(padded, prng.PRNGKey(job.seed, self.device), doping)
         self._problems = _set_problem_lane(self._problems, lane, padded)
-        _set_state_lane(self._states, lane, state)
+        _set_lane(self._states, lane, state)
         rec.lane = lane
         rec.remaining = job.generations
         rec.unique_evals = int(n0)
@@ -332,13 +336,106 @@ class SearchServer:
         return {i: j for i, j in enumerate(self._sched.lane_job)
                 if j is not None}
 
-    # -- checkpointing (ROADMAP A12b) ---------------------------------------
+    # -- checkpointing --------------------------------------------------------
 
     def save(self, directory: str, *, keep: int = 3,
              allow_pending: bool = False) -> str:
-        raise not_ported("SearchServer checkpoints", "A12b")
+        """Checkpoint the in-flight lanes (states, problems and scheduler
+        metadata) atomically, in the reference's format; :meth:`restore`
+        resumes them into a bit-identical continuation. By default the queue
+        must be empty (queued jobs hold Problems the store does not
+        serialize), and retired results must already have been taken from
+        ``step()``/``drain()``.
+
+        ``allow_pending=True`` (the supervisor's auto-checkpoint) saves
+        anyway and records each queued job's (id, name, generations, seed):
+        after :meth:`restore` they ride in ``dropped_pending`` for the caller
+        to resubmit with their Problems. A job's result is the same whichever
+        segment admits it, so nothing is lost but its place in the queue.
+
+        The payload is ``(states, problems, meta)``, its leaves named as the
+        reference names them (``GAState``/``Problem.tree_flatten``); the PRNG
+        keys, int64 words here, are written as the reference's uint32."""
+        if self._sched.pending and not allow_pending:
+            raise ValueError("cannot save with pending jobs queued: admit "
+                             "them (step()) or drain first, or pass "
+                             "allow_pending=True to record them for "
+                             "resubmission after restore")
+        pending = []
+        for job_id in self._sched.pending:
+            rec = self._jobs[job_id]
+            pending.append({"job_id": rec.job_id, "name": rec.name,
+                            "generations": rec.generations, "seed": rec.seed})
+        lanes = []
+        for lane in range(self.n_lanes):
+            job_id = self._sched.lane_job[lane]
+            if job_id is None:
+                lanes.append(None)
+                continue
+            rec = self._jobs[job_id]
+            lanes.append({"job_id": rec.job_id, "name": rec.name,
+                          "generations": rec.generations, "seed": rec.seed,
+                          "remaining": rec.remaining,
+                          "unique_evals": rec.unique_evals,
+                          "cache_hits": rec.cache_hits,
+                          "admitted_segment": rec.admitted_segment,
+                          "positions": np.asarray(rec.positions).tolist()})
+        # the reference's keys, in its order: the blob's bytes (and crc) match
+        meta = {"n_lanes": self.n_lanes, "segment_len": self.segment_len,
+                "max_samples": self.max_samples,
+                "segments_done": self._segments_done,
+                "next_id": self._next_id, "policy": self._sched.policy,
+                "cfg": repr(_canon_cfg(self._cfg)), "lanes": lanes,
+                "pending": pending}
+        blob = np.frombuffer(json.dumps(meta).encode(), np.uint8).copy()
+        states = dataclasses.replace(
+            self._states, key=self._states.key.cpu().numpy().astype(np.uint32))
+        return ckpt.save_checkpoint(directory, self._segments_done,
+                                    (states, self._problems, blob), keep=keep,
+                                    async_io=False)
 
     @classmethod
     def restore(cls, directory: str, spec: "genome_mod.GenomeSpec",
-                cfg: GAConfig, *, step: int | None = None) -> "SearchServer":
-        raise not_ported("SearchServer checkpoints", "A12b")
+                cfg: GAConfig, *, step: int | None = None,
+                device="cuda") -> "SearchServer":
+        """Rebuild a server from :meth:`save` (or the reference's
+        ``SearchServer.save``) on ``device``: in-flight jobs resume mid-budget
+        and finish bit-identical to the uninterrupted run. ``spec``/``cfg``
+        must be the ones the saved server was built with (they are not
+        serialized; the config fingerprint is checked, so a backend the
+        port does not have is refused too). The restored lanes are new
+        ``Problem``/``GAState`` objects, so nothing memoized on the
+        constructor's outlives the restore."""
+        if step is None:
+            step = ckpt.latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {directory}")
+        meta = json.loads(bytes(ckpt.read_leaf(directory, step, _META_LEAF)))
+        srv = cls(spec, cfg, max_samples=meta["max_samples"],
+                  n_lanes=meta["n_lanes"], segment_len=meta["segment_len"],
+                  policy=meta["policy"], device=device)
+        if repr(_canon_cfg(srv._cfg)) != meta["cfg"]:
+            raise ValueError("restore cfg does not match the saved server's: "
+                             f"{meta['cfg']}")
+        target = (srv._states, srv._problems, np.zeros(0, np.uint8))
+        srv._states, srv._problems, _ = ckpt.restore_checkpoint(
+            directory, step, target, device=srv.device)
+        srv._segments_done = int(meta["segments_done"])
+        srv._next_id = int(meta["next_id"])
+        for lane, lm in enumerate(meta["lanes"]):
+            if lm is None:
+                continue
+            rec = _JobRecord(
+                job_id=int(lm["job_id"]), name=lm["name"],
+                generations=int(lm["generations"]), seed=int(lm["seed"]),
+                lane=lane, positions=np.asarray(lm["positions"], np.int32),
+                remaining=int(lm["remaining"]),
+                unique_evals=int(lm["unique_evals"]),
+                cache_hits=int(lm["cache_hits"]),
+                admitted_segment=lm["admitted_segment"])
+            srv._jobs[rec.job_id] = rec
+            srv._sched.occupy(lane, rec.job_id)
+        # queued jobs an allow_pending save recorded: their Problems were not
+        # serialized, so they come back as metadata for resubmission
+        srv.dropped_pending = list(meta.get("pending", []))
+        return srv

@@ -14,13 +14,18 @@ bound), one launch for all lanes; the probe kernel and its memo; the LM-side ker
 small and ragged shapes (the state scan bit for bit, the pow2 product
 within 1e-4 of the plain output's largest magnitude and its decode of every
 code exact, attention within
-3e-4 in float32 and ``flash_attention_bf16_limit`` in bfloat16). The
+3e-4 in float32 and ``flash_attention_bf16_limit`` in bfloat16); the
+supervised server's checkpoint of a card server restored on the card and on
+the CPU, leaf for leaf, and a poisoned lane quarantined on the card under
+the watchdog, on the caller's side stream. The
 tests skip, with a reason, where ``torch.cuda.is_available()`` is False;
 ``python3 chip_smoke.py`` runs the same comparisons at the main path's
 full shapes. Run them on a card with
 ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py``
 (``--noconftest``: the shared conftest imports jax, which a card host for
 the port need not have; this file uses none of its fixtures)."""
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -735,3 +740,102 @@ def test_lm_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError, match="D, Dv"):
         wide = torch.zeros((1, 16, 160), device=card)
         flash_attention(wide, wide, q[:1])
+
+
+# -- the supervised server on the card ------------------------------------------------
+
+def _serve_problems(dev):
+    from repro_torch.core import GAConfig, engine
+
+    cfg = GAConfig(pop_size=16, generations=8)
+    probs = {}
+    for name, (seed, n, sizes) in {"a": (1, 64, (4, 4, 2)), "b": (2, 96, (5, 6, 2))}.items():
+        rng = np.random.default_rng(seed)
+        x = rng.random((n, sizes[0])).astype(np.float32)
+        y = (x.sum(axis=1) > sizes[0] / 2).astype(np.int32)
+        probs[name] = ((MLPTopology(sizes), x, y),
+                       engine.Problem.from_data(MLPTopology(sizes), x, y, cfg, device=dev))
+    return probs, cfg
+
+
+def test_server_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A card server saved mid-flight (one job queued): restored on the card
+    and on the CPU, every leaf equals the card server's; the card restore
+    (the default device) takes the queued job back and drains to the
+    uninterrupted run's results."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.serve import SearchServer
+
+    probs, cfg = _serve_problems(card)
+    srv = SearchServer.for_problems([p for _, p in probs.values()], n_lanes=2, segment_len=4)
+    for name, gens, seed in (("a", 12, 0), ("b", 8, 1), ("a", 4, 2)):
+        srv.submit(probs[name][1], generations=gens, seed=seed, name=f"{name}{seed}")
+    srv.step()
+    srv.save(str(tmp_path), allow_pending=True)
+    want = dict(manager.named_leaves((srv._states, srv._problems)))
+    for dev in (card, torch.device("cpu")):
+        rest = SearchServer.restore(str(tmp_path), srv.spec, cfg, device=dev)
+        assert rest.active_jobs == srv.active_jobs and rest.segments_done == 1
+        assert [p["name"] for p in rest.dropped_pending] == ["a2"]
+        got = dict(manager.named_leaves((rest._states, rest._problems)))
+        assert sorted(got) == sorted(want)
+        for name, leaf in got.items():
+            assert leaf.device.type == dev.type and leaf.dtype == want[name].dtype, name
+            assert torch.equal(leaf.cpu(), want[name].cpu()), name
+    rest = SearchServer.restore(str(tmp_path), srv.spec, cfg)     # the card by default
+    rest.submit(probs["a"][1], generations=4, seed=2, name="a2")
+    resumed = {r.name: r for r in rest.drain()}
+    for r in srv.drain():
+        for f in ("pop", "obj", "viol", "rank", "crowd", "counts", "key", "gen"):
+            assert torch.equal(getattr(resumed[r.name].state, f), getattr(r.state, f)), f
+        assert (resumed[r.name].unique_evals, resumed[r.name].cache_hits) == \
+            (r.unique_evals, r.cache_hits)
+
+
+@pytest.mark.parametrize("leaf,check", [("obj", "finite_objectives"),
+                                        ("counts", "counts_in_range")])
+def test_poisoned_lane_quarantined_on_the_card(card, leaf, check):
+    """The chaos plan poisons lane 0 after its first segment: the supervisor
+    quarantines that job alone, naming the tripped check, and the sibling
+    equals its ``GATrainer.run`` on the card. The stream runs under the
+    watchdog on a side stream: each segment runs on the watchdog's thread
+    under the caller's stream, and the kernels launch there."""
+    import dataclasses
+
+    from repro_torch.core import GATrainer
+    from repro_torch.kernels import _cuda
+    from repro_torch.serve import ChaosPlan, FaultPolicy, Supervisor
+
+    probs, cfg = _serve_problems(card)
+    sup = Supervisor.for_problems([p for _, p in probs.values()],
+                                  FaultPolicy(segment_timeout_s=600.0),
+                                  chaos=ChaosPlan(poison={0: 0}, poison_leaf=leaf),
+                                  n_lanes=2, segment_len=4)
+    assert sup.server.device.type == card.type
+    sup.submit(probs["a"][1], generations=12, seed=3, name="poisoned")
+    sup.submit(probs["b"][1], generations=8, seed=4, name="healthy")
+    seen, step = [], sup.server.step
+
+    def step_seen():
+        seen.append((threading.get_ident(), torch.cuda.current_stream(card)))
+        return step()
+
+    sup.server.step = step_seen
+    side = torch.cuda.Stream(card)
+    torch.cuda.synchronize(card)
+    _cuda.reset_launches()
+    with torch.cuda.stream(side):
+        results = {r.name: r for r in sup.drain()}
+    torch.cuda.synchronize(card)
+    # two segments: both lanes for 4 generations, then the healthy lane for 4
+    assert len(seen) == 2 and all(t != threading.get_ident() and s == side for t, s in seen)
+    assert (_cuda.LAUNCHES["pop_mlp_correct"], _cuda.LAUNCHES["pop_generation_kernel"]) == (2, 8)
+    bad, good = results["poisoned"], results["healthy"]
+    assert not bad.ok and bad.front is None and bad.generations_run == 4
+    assert bad.error == f"lane 0 failed validation at segment 1: {check}"
+    assert sup.stats["quarantined"] == 1 and good.ok
+    tr = GATrainer(*probs["b"][0], dataclasses.replace(cfg, seed=4, generations=8),
+                   device=card)
+    state, _ = tr.run()
+    for f in ("pop", "obj", "viol", "rank", "crowd", "counts", "key", "gen"):
+        assert torch.equal(getattr(good.state, f), getattr(state, f)), f

@@ -476,7 +476,7 @@ def test_retired_lanes_leave_survivors_clean(two_datasets):
     assert_matches_trainer(results[short], bc, cfg, 0, msg="short lane")
 
 
-def test_submit_validation(two_datasets, monkeypatch):
+def test_submit_validation(two_datasets, monkeypatch, tmp_path):
     bc, rw = two_datasets
     cfg = GAConfig(pop_size=16, generations=4)
     pa = _problem(bc, cfg)
@@ -495,10 +495,11 @@ def test_submit_validation(two_datasets, monkeypatch):
     # a job whose config differs only in what the server owns is accepted
     srv.submit(pa.replace_cfg(generations_budget=9, batch_axis=engine.BATCH_AXIS),
                generations=4)
-    for call in (lambda: srv.save("unused"),
-                 lambda: SearchServer.restore("unused", pa.spec, cfg)):
-        with pytest.raises(NotImplementedError, match="A12b"):
-            call()
+    # a save with a job queued raises; an empty directory has nothing to restore
+    with pytest.raises(ValueError, match="pending"):
+        srv.save(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        SearchServer.restore(str(tmp_path), pa.spec, cfg, **CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SearchServer(pa.spec, cfg, max_samples=10)
